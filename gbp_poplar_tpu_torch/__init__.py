@@ -6,9 +6,10 @@ the same factor graph in the same plane layout, the same per-edge sweep
 body, held against the JAX functions on the same inputs by the tests in
 tests/test_torch_*.py. This package never imports JAX.
 
-Ported so far: the batch GBP bundle-adjustment solve without the
-fixed-point accelerator and the coarse corrector (``accel_every=0``,
-``coarse_groups=0``). ROADMAP.md lists what remains.
+Ported so far: the batch GBP bundle-adjustment solve with the fixed-point
+accelerator, on the fused and the unfused sweep pipeline (``GBPConfig()``
+as it stands runs); not yet the coarse corrector (``coarse_groups > 0``
+raises NotImplementedError). ROADMAP.md lists what remains.
 """
 
 import torch
@@ -35,8 +36,8 @@ def solve_ba(problem, cfg: GBPConfig | None = None, n_iters: int = 1000,
 
     Returns (cam_means [C,6], lmk_means [L,3], per-iteration mean
     reprojection error [n_iters]) as NumPy arrays. ``cfg`` defaults to
-    the JAX package's defaults, whose accelerator (``accel_every=50``) is
-    not ported yet: pass ``GBPConfig(accel_every=0)``."""
+    ``GBPConfig()``, the JAX package's defaults: the fixed-point
+    accelerator every 50 sweeps from sweep 150, the fused sweep."""
     from .core import build_graph, gbp, init_state
     from .utils import analysis
 

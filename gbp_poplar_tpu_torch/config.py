@@ -5,7 +5,8 @@ The algorithm fields are those of ``gbp_poplar_tpu.config.GBPConfig`` and
 for the reference citations and the reasoning behind each default). The
 JAX package's execution knobs (``use_pallas``, ``pallas_*``,
 ``table_carry``) describe TPU kernel variants; here they are replaced by
-one selector, ``kernels``.
+two: ``kernels`` (CUDA kernels or plain versions) and ``fused`` (the
+counterpart of ``pallas_fused``).
 """
 
 from __future__ import annotations
@@ -50,9 +51,12 @@ class GBPConfig:
     iters_between_kfs: int = 700       # SLAM only (not ported yet)
 
     # --- fixed-point acceleration and coarse correction ---
-    # Not ported yet (ROADMAP.md, A6): run_gbp raises NotImplementedError
-    # when either is enabled. The defaults stay those of the JAX package so
-    # that one config means the same solve in both packages.
+    # Every accel_every anneal-free sweeps the belief means are extrapolated
+    # along their chunk-averaged displacement (core/gbp._accel_step); <= 0
+    # disables. The coarse corrector is not ported yet (ROADMAP.md, A6):
+    # run_gbp raises NotImplementedError for coarse_groups > 0. The
+    # defaults stay those of the JAX package so that one config means the
+    # same solve in both packages.
     accel_every: int = 50
     accel_start: int = 150
     accel_max_rate: float = 0.98
@@ -72,6 +76,15 @@ class GBPConfig:
     # PyTorch versions for CPU tensors. "reference": the plain versions on
     # any device (tests and chip_smoke.py compare the two on the card).
     kernels: str = "auto"
+    # The sweep pipeline, the counterpart of the JAX package's pallas_fused.
+    # True: belief tables, then the fused per-edge sweep that reads them by
+    # index (H2 + H1). False: the unfused pipeline, beliefs gathered per
+    # edge, then the per-edge sweep with per-edge mean solves (H5 + H4).
+    # Both end in the belief reduction (H3) and give the same result. The
+    # JAX "auto" means "fused when the graph has fused-sweep windows"; the
+    # fused kernel here gathers by index and needs no windows, so "auto"
+    # and True are the same thing and only the two booleans exist.
+    fused: bool = True
 
     def __post_init__(self):
         if self.kernels not in ("auto", "reference"):

@@ -1,24 +1,33 @@
 """Synchronous Gaussian Belief Propagation — the batch solve.
 
 The PyTorch counterpart of the slice of ``gbp_poplar_tpu/core/gbp.py`` that
-the batch bundle-adjustment solve runs without the fixed-point accelerator
-and the coarse corrector:
+the batch bundle-adjustment solve runs without the coarse corrector:
 
   initialise (beliefs <- priors, linearise every factor)
   run_gbp:   2*steps annealed iterations (prior weakening, then a sweep),
-             then anneal-free sweeps; diagnostics after every sweep.
+             then anneal-free sweeps, in chunks of ``accel_every`` with a
+             fixed-point extrapolation (``_accel_step``) after each chunk
+             from ``accel_start`` on; diagnostics after every sweep.
 
-One sweep is three kernels (each with its plain PyTorch version, chosen by
-the tensors' device and ``cfg.kernels``):
-  1. ops/table_kernel.build_table: per-variable belief tables with the
-     pre-solved means and a validity flag (cameras and landmarks);
-  2. ops/sweep_kernel.sweep: the per-edge state machine and messages
-     (``edge_math``), in place on the packed edge state;
-  3. ops/reduce_kernel.segment_sum: beliefs = priors + message sums.
+One sweep is one of two pipelines (``cfg.fused``), each of kernels with
+their plain PyTorch versions, chosen by the tensors' device and
+``cfg.kernels``:
+  fused (default):
+    1. ops/table_kernel.build_table: per-variable belief tables with the
+       pre-solved means and a validity flag (cameras and landmarks);
+    2. ops/sweep_kernel.sweep: the per-edge state machine and messages
+       (``edge_math``), in place on the packed edge state;
+  unfused (the JAX package's pipeline on graphs without fused windows):
+    1. ops/reduce_kernel.gather: the beliefs gathered per edge;
+    2. ops/sweep_kernel.sweep_planes: ``edge_math`` with the means solved
+       per edge, in place on the packed edge state;
+  and then, for both:
+    3. ops/reduce_kernel.segment_sum: beliefs = priors + message sums.
 
 All per-edge state is in plane layout ([component, E] tensors, see
 ops/planes.py). PyTorch runs eagerly: the loop over sweeps is a Python
-loop, and diagnostics stay on the device until the solve returns.
+loop, and diagnostics and the accelerator's decisions stay on the device
+until the solve returns.
 """
 
 from __future__ import annotations
@@ -38,6 +47,20 @@ def _variable_means(state: GBPState) -> tuple[torch.Tensor, torch.Tensor]:
     """Solve belief means per variable: cam_mu [6, C], lmk_mu [3, L]."""
     return (table_kernel.variable_means(state.cam_bel, CAM_DOF),
             table_kernel.variable_means(state.lmk_bel, LMK_DOF))
+
+
+def _sanitized_means(state: GBPState, cfg: GBPConfig):
+    """Belief means per variable, each column zeroed whole where any
+    component is not finite: the JAX package's
+    ``_sanitize_means(*_variable_means(state))``, read from the belief
+    tables (ops/table_kernel.build_table) that hold exactly that."""
+    ref = cfg.kernels == "reference"
+    out = []
+    for bel, d in ((state.cam_bel, CAM_DOF), (state.lmk_bel, LMK_DOF)):
+        tbl = table_kernel.build_table(bel, d, reference=ref)
+        comp = bel.shape[0]
+        out.append(tbl[:, comp:comp + d].T)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -118,18 +141,20 @@ def edge_math(
     f_eta_c0, f_eta_l0, f_lam_cc0, f_lam_cl0, f_lam_ll0,
     msg_c_eta0, msg_c_lam0, msg_l_eta0, msg_l_lam0,
     damping0, damping_count0, mu0, lin_mu0, robust0, active_i,
-    k, cfg: GBPConfig, premu, intr=None,
+    k, cfg: GBPConfig, premu=None, intr=None,
 ):
     """The complete per-edge GBP sweep body on plane tensors: the damping
     and relinearisation state machine, then the factor-to-variable messages.
 
     The same function as ``gbp_poplar_tpu.core.gbp.edge_math``, operation
-    for operation, on [E] rows, with the pre-solved means as both fused
-    TPU wrappers run it. ``bc`` [27, E] / ``bl`` [9, E] are the gathered
-    beliefs (eta | packed Lambda); ``premu`` (10 planes: mu_c[6] | mu_l[3]
-    | valid[1]) the adjacent means solved once per variable, zeroed with
-    valid = 0 where a belief's mean is not finite. Returns the 14
-    fields f_eta_c, f_eta_l, f_lam_cc, f_lam_cl, f_lam_ll, msg_c_eta,
+    for operation, on [E] rows. ``bc`` [27, E] / ``bl`` [9, E] are the
+    gathered beliefs (eta | packed Lambda). ``premu`` (10 planes: mu_c[6] |
+    mu_l[3] | valid[1]) holds the adjacent means solved once per variable,
+    zeroed with valid = 0 where a belief's mean is not finite, as both
+    fused TPU wrappers run it; with ``premu=None`` (the unfused pipeline)
+    the means are solved per edge from ``bc``/``bl`` and, as in the JAX
+    function, only the finiteness of the mean step gates them. Returns the
+    14 fields f_eta_c, f_eta_l, f_lam_cc, f_lam_cl, f_lam_ll, msg_c_eta,
     msg_c_lam, msg_l_eta, msg_l_lam, damping [E], damping_count [E],
     mu, lin_mu, robust [E]. Selects are ``torch.where``, never a multiply
     by a mask, so a NaN on an inactive or padding lane stays there."""
@@ -142,8 +167,13 @@ def edge_math(
                           cfg.eta_damping, damping0)
     damping_count = damping_count0 + active.to(torch.int32)
 
-    mu = premu[:9]
-    valid = premu[9] > 0.5
+    if premu is not None:
+        mu = premu[:9]
+        valid = premu[9] > 0.5
+    else:
+        mu = torch.cat([table_kernel.variable_means(bc, CAM_DOF),
+                        table_kernel.variable_means(bl, LMK_DOF)])
+        valid = None
 
     # relinearisation candidates at the current belief means
     meas_u, meas_v = meas[0], meas[1]
@@ -165,7 +195,9 @@ def edge_math(
         return acc
 
     dmu2 = _sqnorm(mu - mu0)
-    mu_ok = valid & torch.isfinite(dmu2)
+    mu_ok = torch.isfinite(dmu2)
+    if valid is not None:
+        mu_ok = valid & mu_ok
 
     if cfg.relin_every_iter:
         relin = active & mu_ok
@@ -281,12 +313,20 @@ def edge_math(
 
 
 def gbp_sweep(state: GBPState, graph: GBPGraph, cfg: GBPConfig) -> GBPState:
-    """One synchronous sweep: belief tables, the per-edge sweep (in place),
-    then the belief update."""
+    """One synchronous sweep, in place on the edge state, then the belief
+    update. ``cfg.fused``: belief tables and the fused per-edge sweep;
+    otherwise the beliefs gathered per edge and the unfused sweep."""
     ref = cfg.kernels == "reference"
-    cam_tbl = table_kernel.build_table(state.cam_bel, CAM_DOF, reference=ref)
-    lmk_tbl = table_kernel.build_table(state.lmk_bel, LMK_DOF, reference=ref)
-    sweep_kernel.sweep(state, graph, cam_tbl, lmk_tbl, cfg, reference=ref)
+    if cfg.fused:
+        cam_tbl = table_kernel.build_table(state.cam_bel, CAM_DOF,
+                                           reference=ref)
+        lmk_tbl = table_kernel.build_table(state.lmk_bel, LMK_DOF,
+                                           reference=ref)
+        sweep_kernel.sweep(state, graph, cam_tbl, lmk_tbl, cfg, reference=ref)
+    else:
+        bc = reduce_kernel.gather(state.cam_bel, graph.cam_idx, reference=ref)
+        bl = reduce_kernel.gather(state.lmk_bel, graph.lmk_idx, reference=ref)
+        sweep_kernel.sweep_planes(state, graph, bc, bl, cfg, reference=ref)
     return update_beliefs(state, graph, cfg)
 
 
@@ -335,7 +375,7 @@ def diagnostics(state: GBPState, graph: GBPGraph,
 
 
 # ---------------------------------------------------------------------------
-# full solves
+# initialisation and the scheduled iteration
 # ---------------------------------------------------------------------------
 
 def initialise(state: GBPState, graph: GBPGraph, cfg: GBPConfig) -> GBPState:
@@ -358,8 +398,221 @@ def iteration(state: GBPState, graph: GBPGraph, cfg: GBPConfig,
     return gbp_sweep(state, graph, cfg)
 
 
+# ---------------------------------------------------------------------------
+# the fixed-point accelerator (single device)
+# ---------------------------------------------------------------------------
+#
+# The JAX package's chunk-boundary extrapolation (gbp_poplar_tpu/core/
+# gbp.py, _prior_quad .. _accel_step), without its psums. Every decision
+# (alignment, trust region, cost guard) is a torch.where on the device, so
+# a chunk boundary adds no host synchronisation. The per-edge gathers stay
+# plain index_select, as the JAX package keeps jnp.take there.
+
+class AccelStep(NamedTuple):
+    """What one ``_accel_step`` decided (0-d device tensors)."""
+
+    gain: torch.Tensor        # extrapolation gain of the candidate jump
+    accepted: torch.Tensor    # cost_cand <= cost_cur: the jump was applied
+    cost_cur: torch.Tensor    # MAP cost at the current means
+    cost_cand: torch.Tensor   # MAP cost at the candidate's means
+
+
+def _prior_quad(lam_planes, eta_planes, mu_planes, d):
+    """Gaussian prior quadratic 0.5 mu'Lam mu - eta'mu, summed over finite
+    variables (the prior mean's constant cancels in cost comparisons)."""
+    lam = pl.unpack_sym(lam_planes, d)
+    mu_rows = pl.unpack_vec(mu_planes, d)
+    eta_rows = pl.unpack_vec(eta_planes, d)
+    lam_mu = pl.matvec(lam, mu_rows)
+    val = 0.5 * pl.vdot(mu_rows, lam_mu) - pl.vdot(eta_rows, mu_rows)
+    return torch.sum(torch.where(torch.isfinite(val), val, 0.0))
+
+
+def _cost_parts(state: GBPState, graph: GBPGraph, cfg: GBPConfig,
+                mu_c_e, mu_l_e, cam_mu, lmk_mu):
+    """(robust data term, cam prior quad, lmk prior quad) of the MAP
+    objective at the given means, the per-edge means already gathered."""
+    (u, v), _, _ = pl.project(
+        pl.unpack_vec(mu_c_e, 6), pl.unpack_vec(mu_l_e, 3), graph.k,
+        None if graph.intr is None else pl.unpack_vec(graph.intr, 3))
+    ru = graph.meas[0] - u
+    rv = graph.meas[1] - v
+    err2 = (ru * ru + rv * rv) / graph.meas_var
+    err = torch.sqrt(err2)
+    k = cfg.huber_nstds
+    loss = torch.where(err > k, k * err - 0.5 * k * k, 0.5 * err2)
+    ok = (state.active > 0) & torch.isfinite(loss)
+    robust = torch.sum(torch.where(ok, loss, 0.0))
+    cam_prior = _prior_quad(state.cam_prior_lam, state.cam_prior_eta,
+                            cam_mu, 6)
+    lmk_prior = _prior_quad(state.lmk_prior_lam, state.lmk_prior_eta,
+                            lmk_mu, 3)
+    return robust, cam_prior, lmk_prior
+
+
+def map_cost(state: GBPState, graph: GBPGraph, cfg: GBPConfig):
+    """The MAP objective at the current belief means: the sum of whitened
+    Huber losses over active edges plus the Gaussian prior quadratic (up to
+    the prior mean's constant, which cancels in comparisons)."""
+    cam_mu, lmk_mu = _variable_means(state)
+    mu_c = cam_mu.index_select(1, graph.cam_idx)
+    mu_l = lmk_mu.index_select(1, graph.lmk_idx)
+    robust, cam_prior, lmk_prior = _cost_parts(
+        state, graph, cfg, mu_c, mu_l, cam_mu, lmk_mu)
+    return robust + cam_prior + lmk_prior
+
+
+def _active_degrees(state: GBPState, graph: GBPGraph, cfg: GBPConfig):
+    """Number of active edges incident to each variable ([C], [L]), by the
+    deterministic segmented sum (counts of 1.0 are exact in float32)."""
+    act = (state.active > 0).to(state.cam_bel.dtype)[None]
+    ref = cfg.kernels == "reference"
+    return (reduce_kernel.segment_sum(act, graph.cam_seg, reference=ref)[0],
+            reduce_kernel.segment_sum(act, graph.lmk_seg, reference=ref)[0])
+
+
+def _mean_shift_etas(state: GBPState, dc_mu, dl_mu, degs):
+    """Belief-eta corrections Lambda_v @ dmu_v realising the mean shift
+    (dc_mu [6, C], dl_mu [3, L]) at fixed Lambda; non-finite components
+    and variables without active edges carry none."""
+    degc, degl = degs
+    cam_deta = pl.pack_vec(pl.matvec(pl.unpack_sym(state.cam_lam, 6),
+                                     pl.unpack_vec(dc_mu, 6)))
+    lmk_deta = pl.pack_vec(pl.matvec(pl.unpack_sym(state.lmk_lam, 3),
+                                     pl.unpack_vec(dl_mu, 3)))
+    cam_deta = torch.where(torch.isfinite(cam_deta) & (degc > 0)[None],
+                           cam_deta, 0.0)
+    lmk_deta = torch.where(torch.isfinite(lmk_deta) & (degl > 0)[None],
+                           lmk_deta, 0.0)
+    return cam_deta, lmk_deta
+
+
+def _cand_means(state: GBPState, cam_deta, lmk_deta, scale: float):
+    """Belief means of the shift candidate (eta + scale * deta at fixed
+    Lambda): exactly the means ``_apply_shift`` will give the beliefs."""
+    cam = table_kernel.variable_means(
+        torch.cat([state.cam_eta + scale * cam_deta, state.cam_lam]), CAM_DOF)
+    lmk = table_kernel.variable_means(
+        torch.cat([state.lmk_eta + scale * lmk_deta, state.lmk_lam]), LMK_DOF)
+    return cam, lmk
+
+
+def _shift_gather(graph: GBPGraph, cam_groups, lmk_groups):
+    """One stacked gather per variable kind of the planes a shift trial
+    needs per edge (current and candidate means, message shares)."""
+    gc = torch.cat(cam_groups).index_select(1, graph.cam_idx)
+    gl = torch.cat(lmk_groups).index_select(1, graph.lmk_idx)
+    return (gc.split([g.shape[0] for g in cam_groups]),
+            gl.split([g.shape[0] for g in lmk_groups]))
+
+
+def _msg_shares(cam_deta, lmk_deta, degs):
+    """Per-message eta-correction shares (deta / active degree)."""
+    degc, degl = degs
+    cshare = torch.where(degc > 0, 1.0 / torch.clamp_min(degc, 1.0), 0.0)
+    lshare = torch.where(degl > 0, 1.0 / torch.clamp_min(degl, 1.0), 0.0)
+    return cam_deta * cshare[None], lmk_deta * lshare[None]
+
+
+def _apply_shift(state: GBPState, dmsg_c, dmsg_l, cam_deta, lmk_deta,
+                 gain) -> GBPState:
+    """Apply ``gain`` (a 0-d tensor, >= 0) times the shift: the active
+    messages' eta rows of the packed state pick up their per-edge shares
+    (``dmsg_*``, gathered), the belief etas the full correction, so the
+    next sweep reads the shifted beliefs and its reduction re-establishes
+    belief = prior + sum(messages). ``gain`` 0 is an exact no-op."""
+    act = (state.active > 0).to(cam_deta.dtype)[None]
+    live = gain > 0
+
+    def upd(old, d):
+        return torch.where(live, old + gain * d, old)
+
+    state.msg_c_eta.copy_(upd(state.msg_c_eta, act * dmsg_c))
+    state.msg_l_eta.copy_(upd(state.msg_l_eta, act * dmsg_l))
+    state.cam_bel = torch.cat([upd(state.cam_eta, cam_deta), state.cam_lam])
+    state.lmk_bel = torch.cat([upd(state.lmk_eta, lmk_deta), state.lmk_lam])
+    return state
+
+
+def _combine_costs(parts):
+    """Total each (robust, cam_prior, lmk_prior) triple into a cost vector."""
+    robust = torch.stack([p[0] for p in parts])
+    cam_prior = torch.stack([p[1] for p in parts])
+    lmk_prior = torch.stack([p[2] for p in parts])
+    return robust + cam_prior + lmk_prior
+
+
+def _accel_step(state: GBPState, snap, avg, graph: GBPGraph,
+                cfg: GBPConfig, degs):
+    """One fixed-point extrapolation at a chunk boundary (the JAX
+    package's ``_accel_step``; its docstring gives the reasoning).
+
+    Successive chunk-averaged mean displacements d_k contract as
+    d_k ~ r d_{k-1}; where they are aligned (cos^2 > 0.8, r > 0.1) the
+    means jump by gain * d_k, gain = r / (1 - r) with r clipped to
+    ``accel_max_rate`` and the jump capped at ``accel_max_step`` per
+    camera. The jump is realised on the eta state (``_apply_shift``) and
+    accepted only if the MAP cost at the candidate's exact means does not
+    exceed the current one.
+
+    ``snap`` = (avg_cam_prev, avg_lmk_prev, cam_dmu_prev), ``avg`` = this
+    chunk's averaged (avg_cam, avg_lmk). Returns (state, next snap,
+    AccelStep); the JAX function's third result, the cost of the state
+    kept, is ``cost_cand`` where ``accepted``, else ``cost_cur``."""
+    cam_mu_prev, lmk_mu_prev, dmu_prev = snap
+    avg_cam, avg_lmk = avg
+    dc_mu = avg_cam - cam_mu_prev
+    dl_mu = avg_lmk - lmk_mu_prev
+    # weakly constrained landmarks can have transiently singular beliefs;
+    # never extrapolate a non-finite row
+    dl_mu = torch.where(torch.isfinite(dl_mu), dl_mu, 0.0)
+
+    num = torch.sum(dc_mu * dmu_prev)
+    den = torch.sum(dmu_prev * dmu_prev)
+    cur = torch.sum(dc_mu * dc_mu)
+    safe_den = torch.where(den > 0, den, 1.0)
+    r = torch.where(den > 0, num / safe_den, 0.0)
+    cos2 = torch.where((den > 0) & (cur > 0),
+                       (num * num) / (safe_den * torch.where(cur > 0, cur,
+                                                             1.0)),
+                       0.0)
+    aligned = (cos2 > 0.8) & (r > 0.1) & torch.isfinite(dc_mu).all()
+    r = torch.clamp(r, 0.0, cfg.accel_max_rate)
+    gain = torch.where(aligned, r / (1.0 - r), 0.0)
+    # trust region: no camera mean moves more than accel_max_step
+    step = gain * torch.sqrt(torch.max(torch.sum(dc_mu * dc_mu, dim=0)))
+    gain = gain * torch.clamp_max(
+        cfg.accel_max_step / torch.clamp_min(step, 1e-30), 1.0)
+
+    cam_deta, lmk_deta = _mean_shift_etas(state, gain * dc_mu, gain * dl_mu,
+                                          degs)
+    dmsg_c, dmsg_l = _msg_shares(cam_deta, lmk_deta, degs)
+    cam_mu, lmk_mu = _variable_means(state)
+    cand_c, cand_l = _cand_means(state, cam_deta, lmk_deta, 1.0)
+    cg, lg = _shift_gather(graph, [cam_mu, cand_c, dmsg_c],
+                           [lmk_mu, cand_l, dmsg_l])
+    cost_cur, cost_cand = _combine_costs(
+        [_cost_parts(state, graph, cfg, cg[0], lg[0], cam_mu, lmk_mu),
+         _cost_parts(state, graph, cfg, cg[1], lg[1], cand_c, cand_l)])
+    better = cost_cand <= cost_cur
+    state = _apply_shift(state, cg[2], lg[2], cam_deta, lmk_deta,
+                         better.to(cam_mu.dtype))
+
+    # the next chunk's displacement is measured from the accepted state's
+    # frame: shift the stored averages by the applied jump
+    jump_c = torch.where(better, gain * dc_mu, 0.0)
+    jump_l = torch.where(better, gain * dl_mu, 0.0)
+    snap = (avg_cam + jump_c, avg_lmk + jump_l, dc_mu)
+    return state, snap, AccelStep(gain, better, cost_cur, cost_cand)
+
+
+# ---------------------------------------------------------------------------
+# full solves
+# ---------------------------------------------------------------------------
+
 def run_gbp(state: GBPState, graph: GBPGraph, cfg: GBPConfig, n_iters: int,
-            with_diagnostics: bool = True, iter_offset: int = 0):
+            with_diagnostics: bool = True, iter_offset: int = 0,
+            accel_log: list | None = None):
     """Run ``n_iters`` GBP iterations. Returns (state, Diagnostics of
     [n_iters] tensors, or None without diagnostics). The state is updated
     in place.
@@ -368,24 +621,68 @@ def run_gbp(state: GBPState, graph: GBPGraph, cfg: GBPConfig, n_iters: int,
     for the first ``warm = min(n, 2*steps - iter_offset)`` iterations and
     the remaining sweeps skip it.
 
-    The fixed-point accelerator (``accel_every > 0``) and the coarse
-    corrector (``coarse_groups > 0``) are not ported yet: they raise
-    NotImplementedError rather than run a different schedule."""
-    if cfg.accel_every > 0 or cfg.coarse_groups > 0:
+    With ``cfg.accel_every = ce > 0`` and at least ``2 ce`` anneal-free
+    sweeps, those run as chunks of ``ce`` with an ``_accel_step`` after
+    each chunk that ends at or after ``cfg.accel_start``, fed the chunk's
+    averaged sanitised means; leftover sweeps run after the chunks. Chunks
+    that end before ``accel_start`` run as plain sweeps (the JAX package's
+    static dead-chunk elision): only the last of them averages its means,
+    which seeds the first live step. ``accel_log``, if given, receives
+    (sweep count at the boundary, AccelStep) per accelerator step.
+
+    The coarse corrector (``coarse_groups > 0``) is not ported yet: it
+    raises NotImplementedError rather than run a different schedule."""
+    if cfg.coarse_groups > 0:
         raise NotImplementedError(
-            "the fixed-point accelerator and the coarse corrector are not "
-            "ported yet (ROADMAP.md, A6): use accel_every=0 and "
-            f"coarse_groups=0 (got accel_every={cfg.accel_every}, "
-            f"coarse_groups={cfg.coarse_groups})")
-    warm = min(n_iters, max(0, 2 * cfg.steps - iter_offset))
+            "the coarse corrector is not ported yet (ROADMAP.md, A6): use "
+            f"coarse_groups=0 (got coarse_groups={cfg.coarse_groups})")
     diags = []
-    for i in range(n_iters):
-        if i < warm:
-            state = iteration(state, graph, cfg, i + iter_offset)
+
+    def sweeps(s, n, collect=False, anneal_from=None):
+        """``n`` sweeps (annealed iterations from index ``anneal_from``);
+        with ``collect``, also the sum of the post-sweep sanitised means."""
+        sums = None
+        if collect:
+            sums = (torch.zeros_like(s.cam_bel[:CAM_DOF]),
+                    torch.zeros_like(s.lmk_bel[:LMK_DOF]))
+        for j in range(n):
+            if anneal_from is not None:
+                s = iteration(s, graph, cfg, anneal_from + j)
+            else:
+                s = gbp_sweep(s, graph, cfg)
+            if with_diagnostics:
+                diags.append(diagnostics(s, graph, cfg))
+            if collect:
+                mc, ml = _sanitized_means(s, cfg)
+                sums = (sums[0] + mc, sums[1] + ml)
+        return s, sums
+
+    warm = min(n_iters, max(0, 2 * cfg.steps - iter_offset))
+    state, _ = sweeps(state, warm, anneal_from=iter_offset)
+    n2 = n_iters - warm
+    off2 = iter_offset + warm
+    ce = cfg.accel_every
+    if ce > 0 and n2 >= 2 * ce:
+        n_chunks = n2 // ce
+        degs = _active_degrees(state, graph, cfg)
+        n_dead = min(n_chunks,
+                     max(0, -(-(cfg.accel_start - ce - off2) // ce)))
+        if n_dead:
+            state, _ = sweeps(state, (n_dead - 1) * ce)
+            state, sums = sweeps(state, ce, collect=True)
+            avg_c, avg_l = sums[0] / ce, sums[1] / ce
+            snap = (avg_c, avg_l, torch.zeros_like(avg_c))
         else:
-            state = gbp_sweep(state, graph, cfg)
-        if with_diagnostics:
-            diags.append(diagnostics(state, graph, cfg))
+            cam_mu0, lmk_mu0 = _variable_means(state)
+            snap = (cam_mu0, lmk_mu0, torch.zeros_like(cam_mu0))
+        for c in range(n_dead, n_chunks):
+            state, sums = sweeps(state, ce, collect=True)
+            state, snap, info = _accel_step(
+                state, snap, (sums[0] / ce, sums[1] / ce), graph, cfg, degs)
+            if accel_log is not None:
+                accel_log.append((off2 + (c + 1) * ce, info))
+        n2 -= n_chunks * ce
+    state, _ = sweeps(state, n2)
     if not with_diagnostics or not diags:
         return state, None
     return state, Diagnostics(*(torch.stack(x) for x in zip(*diags)))

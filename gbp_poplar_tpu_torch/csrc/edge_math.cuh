@@ -3,8 +3,10 @@
 // four factor-to-variable messages.
 //
 // The scalar counterpart of core/gbp.py::edge_math in this package and in
-// the JAX package (with the pre-solved means, ``premu``), operation for
-// operation; see csrc/planes.cuh for the rounding rules. Selects are
+// the JAX package, operation for operation, with the adjacent means either
+// pre-solved per variable (``premu``: edge_math_tables, the fused sweep) or
+// solved per edge from the gathered beliefs (edge_math_gathered, the
+// unfused sweep); see csrc/planes.cuh for the rounding rules. Selects are
 // ternaries, never a multiply by a mask, so a NaN computed on an inactive
 // or padding lane cannot reach an output of another lane.
 #pragma once
@@ -50,10 +52,11 @@ enum : int {
   PACK_ROWS = 109,
 };
 
-// Columns of the belief tables (ops/table_kernel.py).
+// Columns of the belief tables (ops/table_kernel.py); a belief itself is
+// eta | packed Lambda, CAM_COMP / LMK_COMP values.
 enum : int {
-  CAM_WIDTH = 36, CAM_MU = 27, CAM_VALID = 33,
-  LMK_WIDTH = 16, LMK_MU = 9, LMK_VALID = 12,
+  CAM_COMP = 27, CAM_WIDTH = 36, CAM_MU = 27, CAM_VALID = 33,
+  LMK_COMP = 9, LMK_WIDTH = 16, LMK_MU = 9, LMK_VALID = 12,
 };
 
 struct Potential {
@@ -224,15 +227,19 @@ struct EdgeColumn {
   }
 };
 
-// One edge of the sweep, in place. ``bc`` is the edge's camera table row
-// (eta 6 | Lambda 21 | mean 6 | valid), ``bl`` its landmark row (eta 3 |
-// Lambda 6 | mean 3 | valid). Every old value of a row is read before the
-// row is written; each thread touches only its own edge.
+// One edge of the sweep, in place. ``bc`` holds the edge's camera belief
+// (eta 6 | packed Lambda 21), ``bl`` its landmark belief (eta 3 | Lambda
+// 6), ``mu`` the adjacent means (camera 6 | landmark 3). ``valid`` is the
+// tables' flag (H1: both means finite, else zeroed); the unfused sweep (H4)
+// solves its means per edge and passes true, as the JAX edge_math without
+// premu tests finiteness of the mean step only. Every old value of a row is
+// read before the row is written; each thread touches only its own edge.
 __device__ __forceinline__ void edge_math(const SweepParams& p,
                                           const EdgeColumn& pk, int& dc,
                                           uint8_t& rb, bool active,
-                                          const float bc[CAM_WIDTH],
-                                          const float bl[LMK_WIDTH],
+                                          const float bc[CAM_COMP],
+                                          const float bl[LMK_COMP],
+                                          const float mu[9], bool valid,
                                           float meas_u, float meas_v,
                                           float meas_var,
                                           const float intr[3]) {
@@ -240,13 +247,6 @@ __device__ __forceinline__ void edge_math(const SweepParams& p,
   const int dc0 = dc;
   float damping = (active && dc0 == 0) ? p.eta_damping : pk.ld(R_DAMPING);
   int damping_count = dc0 + (active ? 1 : 0);
-
-  float mu[9];
-#pragma unroll
-  for (int i = 0; i < 6; ++i) mu[i] = bc[CAM_MU + i];
-#pragma unroll
-  for (int i = 0; i < 3; ++i) mu[6 + i] = bl[LMK_MU + i];
-  const bool valid = bc[CAM_VALID] * bl[LMK_VALID] > 0.5f;
 
   // relinearisation candidates at the current belief means
   Potential pot;
@@ -456,6 +456,41 @@ __device__ __forceinline__ void edge_math(const SweepParams& p,
         pk.st(R_MSG_C_LAM + s, active ? out : 0.0f);
       }
   }
+}
+
+// One edge of the fused sweep (H1): ``bc`` / ``bl`` are the edge's rows of
+// the belief tables, which carry the means solved once per variable.
+__device__ __forceinline__ void edge_math_tables(
+    const SweepParams& p, const EdgeColumn& pk, int& dc, uint8_t& rb,
+    bool active, const float bc[CAM_WIDTH], const float bl[LMK_WIDTH],
+    float meas_u, float meas_v, float meas_var, const float intr[3]) {
+  float mu[9];
+#pragma unroll
+  for (int i = 0; i < 6; ++i) mu[i] = bc[CAM_MU + i];
+#pragma unroll
+  for (int i = 0; i < 3; ++i) mu[6 + i] = bl[LMK_MU + i];
+  const bool valid = bc[CAM_VALID] * bl[LMK_VALID] > 0.5f;
+  edge_math(p, pk, dc, rb, active, bc, bl, mu, valid, meas_u, meas_v,
+            meas_var, intr);
+}
+
+// One edge of the unfused sweep (H4): ``bc_col`` / ``bl_col`` point at the
+// edge's column of the gathered belief planes [27, E] / [9, E] (row stride
+// ``stride``). The means are solved here, per edge, by the same belief_mean
+// as the table build; the solve's temporaries end before edge_math starts.
+__device__ __forceinline__ void edge_math_gathered(
+    const SweepParams& p, const EdgeColumn& pk, int& dc, uint8_t& rb,
+    bool active, const float* bc_col, const float* bl_col, long long stride,
+    float meas_u, float meas_v, float meas_var, const float intr[3]) {
+  float bc[CAM_COMP], bl[LMK_COMP], mu[9];
+#pragma unroll
+  for (int i = 0; i < CAM_COMP; ++i) bc[i] = bc_col[i * stride];
+#pragma unroll
+  for (int i = 0; i < LMK_COMP; ++i) bl[i] = bl_col[i * stride];
+  belief_mean<6>(bc, bc + 6, mu);
+  belief_mean<3>(bl, bl + 3, mu + 6);
+  edge_math(p, pk, dc, rb, active, bc, bl, mu, true, meas_u, meas_v,
+            meas_var, intr);
 }
 
 }  // namespace gbp

@@ -129,6 +129,30 @@ __device__ __forceinline__ bool inv_sym3_posdef(const float m[3][3],
   return ok;
 }
 
+// Mean of one belief from its eta [D] and packed Lambda
+// (table_kernel.variable_means): D = 6 by Cholesky (planes.solve_sym),
+// D = 3 by the adjugate inverse times eta (planes.inv_sym3, planes.matvec).
+// The table build (H2) and the unfused sweep (H4) both solve here, so a
+// mean solved per variable and one solved per edge agree to the bit.
+template <int D>
+__device__ __forceinline__ void belief_mean(const float eta[D],
+                                            const float* lam, float mu[D]) {
+  static_assert(D == 6 || D == 3, "cameras (6) or landmarks (3)");
+  float m[D][D];
+  unpack_sym<D>(lam, m);
+  if constexpr (D == 6) {
+    float l[6][6], min_pivot;
+    cholesky_with_pivot<6>(m, l, min_pivot);
+    chol_solve<6>(l, eta, mu);
+  } else {
+    float inv[3][3];
+    inv_sym3_posdef(m, inv);
+#pragma unroll
+    for (int i = 0; i < 3; ++i)
+      mu[i] = inv[i][0] * eta[0] + inv[i][1] * eta[1] + inv[i][2] * eta[2];
+  }
+}
+
 // Rodrigues' formula with the small-angle branch (planes.so3_exp).
 __device__ __forceinline__ void so3_exp(const float w[3], float r[3][3]) {
   const float wx = w[0], wy = w[1], wz = w[2];

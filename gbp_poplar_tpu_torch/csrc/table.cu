@@ -4,8 +4,10 @@
 // and the camera-side XLA glue of core/gbp.py::_make_tables. One thread
 // per variable, templated on the kind: D = 6 solves the camera mean by
 // Cholesky (planes.solve_sym), D = 3 the landmark mean by the adjugate
-// (planes.inv_sym3). A mean with any non-finite component is zeroed whole
-// with valid = 0 (the JAX package's _sanitize_means: finiteness only).
+// (planes.inv_sym3), both in planes.cuh's belief_mean, which the unfused
+// sweep kernel (H4) shares. A mean with any non-finite component is
+// zeroed whole with valid = 0 (the JAX package's _sanitize_means:
+// finiteness only).
 // Bound: bytes (read 27 or 9 floats, write 36 or 16); rows are written
 // with 16-byte stores so the sweep kernel reads them the same way.
 #include "planes.cuh"
@@ -21,21 +23,8 @@ __global__ void table_kernel(const float* __restrict__ bel, int n_var,
   float row[W];
 #pragma unroll
   for (int i = 0; i < D + NS; ++i) row[i] = bel[(size_t)i * n_var + v];
-  float eta[D], m[D][D], mu[D];
-#pragma unroll
-  for (int i = 0; i < D; ++i) eta[i] = row[i];
-  unpack_sym<D>(row + D, m);
-  if constexpr (D == 6) {
-    float l[6][6], min_pivot;
-    cholesky_with_pivot<6>(m, l, min_pivot);
-    chol_solve<6>(l, eta, mu);
-  } else {
-    float inv[3][3];
-    inv_sym3_posdef(m, inv);
-#pragma unroll
-    for (int i = 0; i < 3; ++i)
-      mu[i] = inv[i][0] * eta[0] + inv[i][1] * eta[1] + inv[i][2] * eta[2];
-  }
+  float mu[D];
+  belief_mean<D>(row, row + D, mu);
   bool ok = true;
 #pragma unroll
   for (int i = 0; i < D; ++i) ok = ok && isfinite(mu[i]);

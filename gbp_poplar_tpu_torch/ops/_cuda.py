@@ -4,7 +4,9 @@ The kernels are compiled by ``nvcc`` for Hopper (``sm_90a``) into one
 shared library with a plain C interface, loaded with ``ctypes``. The build
 happens at first use, into ``gbp_poplar_tpu_torch/_build/`` (listed in
 .gitignore), keyed by a hash of the sources and flags, so a changed source
-rebuilds and an unchanged one loads at once.
+rebuilds and an unchanged one loads at once. Each ``.cu`` file is compiled
+by its own ``nvcc`` process, all started together, and the objects are
+then linked into the library.
 
 Flags: ``-O3`` and no ``--use_fast_math`` (it changes division, sqrt and
 denormals, and with them relinearisation decisions). ``-fmad=false`` keeps
@@ -33,8 +35,7 @@ _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(os.path.dirname(_HERE), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_HERE), "_build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
-              "-Xptxas", "-v"]
+              "-fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _lib = None
 ptxas_log = None          # path of the -Xptxas -v output of the build
@@ -73,29 +74,44 @@ def library() -> ctypes.CDLL:
     so = os.path.join(BUILD_DIR, f"libgbp_kernels-{tag}.so")
     log = os.path.join(BUILD_DIR, f"ptxas-{tag}.log")
     if not os.path.exists(so):
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-        os.close(fd)
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
-               *[s for s in srcs if s.endswith(".cu")]]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            os.unlink(tmp)
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-                f"{proc.stdout}\n{proc.stderr}")
-        with open(log, "w") as f:
-            f.write(proc.stdout + proc.stderr)
-        os.replace(tmp, so)
+        with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmpdir:
+            nvcc = _nvcc()
+            jobs = []
+            for src in (s for s in srcs if s.endswith(".cu")):
+                obj = os.path.join(tmpdir, os.path.basename(src) + ".o")
+                cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", obj, src]
+                jobs.append((cmd, obj, subprocess.Popen(
+                    cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                    text=True)))
+            out = ""
+            for cmd, _, proc in jobs:
+                text = proc.communicate()[0]
+                if proc.returncode != 0:
+                    raise RuntimeError(
+                        f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
+                        f"{text}")
+                out += text
+            tmp = os.path.join(tmpdir, "lib.so")
+            cmd = [nvcc, "-shared", "-o", tmp, *[o for _, o, _ in jobs]]
+            proc = subprocess.run(cmd, capture_output=True, text=True)
+            if proc.returncode != 0:
+                raise RuntimeError(
+                    f"nvcc link failed ({proc.returncode}): {' '.join(cmd)}"
+                    f"\n{proc.stdout}\n{proc.stderr}")
+            with open(log, "w") as f:
+                f.write(out)
+            os.replace(tmp, so)
     ptxas_log = log
     lib = ctypes.CDLL(so)
-    p, i = ctypes.c_void_p, ctypes.c_int
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.gbp_table_launch.argtypes = [i, p, i, p, i, p]
-    lib.gbp_reduce_launch.argtypes = [p, ctypes.c_longlong, i, p, p, i, p, p,
-                                      i, p]
-    lib.gbp_sweep_launch.argtypes = [p, p, p, p, p, p, p, p, p, p, p, p, i,
-                                     p]
+    lib.gbp_reduce_launch.argtypes = [p, ll, i, p, p, i, p, p, i, p]
+    lib.gbp_sweep_launch.argtypes = [p] * 12 + [i, p]
+    lib.gbp_sweep_planes_launch.argtypes = [p] * 10 + [i, p]
+    lib.gbp_gather_launch.argtypes = [p, ll, i, p, p, ll, p]
     for fn in (lib.gbp_table_launch, lib.gbp_reduce_launch,
-               lib.gbp_sweep_launch):
+               lib.gbp_sweep_launch, lib.gbp_sweep_planes_launch,
+               lib.gbp_gather_launch):
         fn.restype = i
     _lib = lib
     return lib

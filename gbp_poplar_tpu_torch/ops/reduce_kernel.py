@@ -1,4 +1,5 @@
-"""Per-variable sums of edge message planes: the belief reduction.
+"""Per-variable sums of edge message planes (the belief reduction, H3), and
+the gather of per-variable planes to the edges (H5, at the end).
 
 Replaces ``gbp_poplar_tpu/ops/reduce_kernel.py::_reduce_kernel`` with
 ``blocked_reduce`` and ``combine_partials`` (the one-hot MXU contraction
@@ -80,3 +81,56 @@ def segment_sum(planes: torch.Tensor, seg, prior: torch.Tensor | None = None,
 
 
 segment_sum.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# the belief gather (H5), the inverse direction of the reduction
+# ---------------------------------------------------------------------------
+#
+# Replaces ``gbp_poplar_tpu/ops/reduce_kernel.py::_gather_kernel`` with
+# ``blocked_gather`` (one-hot MXU contraction against a DMA'd variable
+# window per edge block): per-variable planes [comp, V] copied to the
+# edges, [comp, E], for the unfused sweep (core/gbp.gbp_sweep with
+# ``cfg.fused=False``). Kernel (csrc/gather.cu): one thread per edge,
+# looping over the components. Bound on the H100: bytes (read 4 B and
+# write 4 B per component and edge, plus the index). Design: writes are
+# coalesced across a warp; landmark-side reads are nearly sequential since
+# the edges are landmark-sorted; the camera source is a few hundred KB and
+# stays in L1/L2. Every lane gets its variable's column, padding edges
+# included (blocked_gather gave 0 outside a block's window).
+
+def gather_reference(src: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version: ``index_select`` along the variable axis."""
+    return src.index_select(1, idx)
+
+
+def gather(src: torch.Tensor, idx: torch.Tensor,
+           reference: bool = False) -> torch.Tensor:
+    """Columns of ``src`` [comp, V] per edge: ``out[:, e] = src[:, idx[e]]``,
+    [comp, E]. CPU tensors (or ``reference``) take the plain version; CUDA
+    tensors launch csrc/gather.cu."""
+    if reference or src.device.type == "cpu":
+        return gather_reference(src, idx)
+    if src.device.type != "cuda":
+        raise ValueError(f"gather: unsupported device {src.device}")
+    if (src.dtype != torch.float32 or src.dim() != 2
+            or not src.is_contiguous()):
+        raise ValueError("gather: src must be a contiguous float32 "
+                         f"[comp, V], got {src.dtype} {tuple(src.shape)}")
+    if (idx.dtype != torch.int32 or idx.dim() != 1
+            or not idx.is_contiguous() or idx.device != src.device):
+        raise ValueError("gather: idx must be a contiguous int32 [E] on "
+                         "the same device")
+    comp, n_var = src.shape
+    n_edges = idx.shape[0]
+    out = torch.empty((comp, n_edges), dtype=torch.float32,
+                      device=src.device)
+    lib = _cuda.library()
+    err = lib.gbp_gather_launch(src.data_ptr(), n_var, comp, idx.data_ptr(),
+                                out.data_ptr(), n_edges, _cuda.stream_ptr(src))
+    _cuda.check(err, "gather kernel")
+    gather.launches += 1
+    return out
+
+
+gather.launches = 0

@@ -1,5 +1,7 @@
-"""The fused per-edge GBP sweep: relinearisation state machine plus all four
+"""The per-edge GBP sweep: relinearisation state machine plus all four
 factor-to-variable messages, written over the packed edge state in place.
+Two kernels: the fused sweep (H1, below) and the unfused sweep on gathered
+belief planes (H4, ``sweep_planes`` at the end).
 
 Replaces ``gbp_poplar_tpu/ops/sweep_kernel.py::_fused_kernel`` as reached
 from both ``sweep_fused_pallas`` (annealed iterations) and
@@ -86,18 +88,13 @@ def sweep_params(cfg, k, has_intr: bool) -> SweepParams:
         flags=flags)
 
 
-def sweep_reference(state, graph, cam_tbl: torch.Tensor,
-                    lmk_tbl: torch.Tensor, cfg) -> None:
-    """Plain PyTorch version: gather the table rows, run
-    ``core.gbp.edge_math`` on planes, write the results in place."""
+def _edge_math_inplace(state, graph, bc, bl, cfg, premu) -> None:
+    """Run ``core.gbp.edge_math`` on planes and write its outputs back into
+    the state (the plain versions of both kernels)."""
     from ..core.gbp import edge_math
 
-    bc = cam_tbl.index_select(0, graph.cam_idx).T          # [36, E]
-    bl = lmk_tbl.index_select(0, graph.lmk_idx).T          # [16, E]
-    premu = torch.cat([bc[CAM_COMP:CAM_COMP + 6], bl[LMK_COMP:LMK_COMP + 3],
-                       (bc[CAM_COMP + 6] * bl[LMK_COMP + 3])[None]])
     outs = edge_math(
-        bc[:CAM_COMP], bl[:LMK_COMP], graph.meas, graph.meas_var,
+        bc, bl, graph.meas, graph.meas_var,
         state.f_eta_c, state.f_eta_l, state.f_lam_cc, state.f_lam_cl,
         state.f_lam_ll, state.msg_c_eta, state.msg_c_lam, state.msg_l_eta,
         state.msg_l_lam, state.damping, state.damping_count, state.mu,
@@ -114,6 +111,40 @@ def sweep_reference(state, graph, cam_tbl: torch.Tensor,
     state.robust.copy_(robust)
 
 
+def sweep_reference(state, graph, cam_tbl: torch.Tensor,
+                    lmk_tbl: torch.Tensor, cfg) -> None:
+    """Plain PyTorch version: gather the table rows, run
+    ``core.gbp.edge_math`` on planes, write the results in place."""
+    bc = cam_tbl.index_select(0, graph.cam_idx).T          # [36, E]
+    bl = lmk_tbl.index_select(0, graph.lmk_idx).T          # [16, E]
+    premu = torch.cat([bc[CAM_COMP:CAM_COMP + 6], bl[LMK_COMP:LMK_COMP + 3],
+                       (bc[CAM_COMP + 6] * bl[LMK_COMP + 3])[None]])
+    _edge_math_inplace(state, graph, bc[:CAM_COMP], bl[:LMK_COMP], cfg, premu)
+
+
+def _check_edge_args(what: str, state, graph, extra) -> None:
+    """Raise unless every kernel operand is a contiguous tensor of the
+    expected dtype and shape on the state's device."""
+    pk, e = state.pk, graph.n_edges
+    checks = [
+        (pk, (EDGE_PACK_ROWS, e), torch.float32),
+        (state.damping_count, (e,), torch.int32),
+        (state.robust, (e,), torch.bool),
+        (state.active, (e,), torch.int32),
+        (graph.meas, (2, e), torch.float32),
+        (graph.meas_var, (e,), torch.float32),
+        *extra,
+    ]
+    if graph.intr is not None:
+        checks.append((graph.intr, (3, e), torch.float32))
+    for t, shape, dtype in checks:
+        if (tuple(t.shape) != shape or t.dtype != dtype
+                or not t.is_contiguous() or t.device != pk.device):
+            raise ValueError(
+                f"{what}: expected contiguous {dtype} {shape} on {pk.device},"
+                f" got {t.dtype} {tuple(t.shape)} on {t.device}")
+
+
 def sweep(state, graph, cam_tbl: torch.Tensor, lmk_tbl: torch.Tensor, cfg,
           reference: bool = False) -> None:
     """One sweep of every edge, in place on ``state.pk``,
@@ -128,26 +159,11 @@ def sweep(state, graph, cam_tbl: torch.Tensor, lmk_tbl: torch.Tensor, cfg,
     if pk.device.type != "cuda":
         raise ValueError(f"sweep: unsupported device {pk.device}")
     e = graph.n_edges
-    checks = [
-        (pk, (EDGE_PACK_ROWS, e), torch.float32),
-        (state.damping_count, (e,), torch.int32),
-        (state.robust, (e,), torch.bool),
-        (state.active, (e,), torch.int32),
-        (graph.meas, (2, e), torch.float32),
-        (graph.meas_var, (e,), torch.float32),
+    _check_edge_args("sweep", state, graph, [
         (graph.cam_idx, (e,), torch.int32),
         (graph.lmk_idx, (e,), torch.int32),
         (cam_tbl, (graph.n_keyframes, CAM_WIDTH), torch.float32),
-        (lmk_tbl, (graph.n_points, LMK_WIDTH), torch.float32),
-    ]
-    if graph.intr is not None:
-        checks.append((graph.intr, (3, e), torch.float32))
-    for t, shape, dtype in checks:
-        if (tuple(t.shape) != shape or t.dtype != dtype
-                or not t.is_contiguous() or t.device != pk.device):
-            raise ValueError(
-                f"sweep: expected contiguous {dtype} {shape} on {pk.device},"
-                f" got {t.dtype} {tuple(t.shape)} on {t.device}")
+        (lmk_tbl, (graph.n_points, LMK_WIDTH), torch.float32)])
     params = sweep_params(cfg, graph.k, graph.intr is not None)
     lib = _cuda.library()
     err = lib.gbp_sweep_launch(
@@ -162,4 +178,59 @@ def sweep(state, graph, cam_tbl: torch.Tensor, lmk_tbl: torch.Tensor, cfg,
 
 
 sweep.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# the unfused sweep (H4)
+# ---------------------------------------------------------------------------
+#
+# Replaces ``gbp_poplar_tpu/ops/sweep_kernel.py::_kernel`` as reached from
+# ``sweep_edge_math_pallas``: ``edge_math`` without pre-solved means on
+# belief planes gathered per edge beforehand (ops/reduce_kernel.gather), as
+# the JAX package's unfused pipeline runs it (graphs without fused-sweep
+# windows, or ``pallas_fused=False``). Kernel: csrc/sweep.cu
+# ``sweep_planes_kernel``, one thread per edge, sharing csrc/edge_math.cuh
+# with H1; the means are solved per edge by csrc/planes.cuh ``belief_mean``,
+# the routine the table build (H2) uses, so H4 and H1 give the same result
+# on the same state. Bound on the H100: bytes, H1's ~1 KB of packed state
+# per edge plus the 144 B of gathered planes, every access coalesced. What
+# it does not copy from the TPU kernel: the brick layout, the sub-blocks,
+# the gather-native edge-major input and the block grid.
+
+def sweep_planes_reference(state, graph, bc: torch.Tensor, bl: torch.Tensor,
+                           cfg) -> None:
+    """Plain PyTorch version: ``core.gbp.edge_math`` with ``premu=None``."""
+    _edge_math_inplace(state, graph, bc, bl, cfg, None)
+
+
+def sweep_planes(state, graph, bc: torch.Tensor, bl: torch.Tensor, cfg,
+                 reference: bool = False) -> None:
+    """One unfused sweep of every edge, in place on ``state.pk``,
+    ``state.damping_count`` and ``state.robust``, from the gathered belief
+    planes ``bc`` [27, E] and ``bl`` [9, E] (eta | packed Lambda). CPU
+    tensors (or ``reference``) take the plain version; CUDA tensors launch
+    csrc/sweep.cu ``sweep_planes_kernel``."""
+    pk = state.pk
+    if reference or pk.device.type == "cpu":
+        sweep_planes_reference(state, graph, bc, bl, cfg)
+        return
+    if pk.device.type != "cuda":
+        raise ValueError(f"sweep_planes: unsupported device {pk.device}")
+    e = graph.n_edges
+    _check_edge_args("sweep_planes", state, graph, [
+        (bc, (CAM_COMP, e), torch.float32),
+        (bl, (LMK_COMP, e), torch.float32)])
+    params = sweep_params(cfg, graph.k, graph.intr is not None)
+    lib = _cuda.library()
+    err = lib.gbp_sweep_planes_launch(
+        ctypes.addressof(params), pk.data_ptr(), state.damping_count.data_ptr(),
+        state.robust.data_ptr(), state.active.data_ptr(),
+        graph.meas.data_ptr(), graph.meas_var.data_ptr(),
+        _cuda.ptr(graph.intr), bc.data_ptr(), bl.data_ptr(), e,
+        _cuda.stream_ptr(pk))
+    _cuda.check(err, "sweep_planes kernel")
+    sweep_planes.launches += 1
+
+
+sweep_planes.launches = 0
 

@@ -195,10 +195,12 @@ def test_solve_matches_jax_by_outcome(synthetic):
     np.testing.assert_allclose(err, et[-1], rtol=1e-3)
 
 
-@pytest.mark.parametrize("kw", [dict(accel_every=50), dict(coarse_groups=4)],
+@pytest.mark.parametrize("kw", [dict(accel_every=50), dict(accel_every=0)],
                          ids=["accel", "coarse"])
 def test_run_gbp_refuses_unported_schedules(synthetic, kw):
-    cfg = GBPConfig(**{"accel_every": 0, **kw})
+    """The coarse corrector is not ported: run_gbp refuses coarse_groups
+    > 0, with the (ported) accelerator on ("accel") or off ("coarse")."""
+    cfg = GBPConfig(coarse_groups=4, **kw)
     graph = fg.build_graph(synthetic, cfg, "cpu")
     state = fg.init_state(synthetic, cfg, "cpu")
     with pytest.raises(NotImplementedError, match="A6"):
