@@ -38,7 +38,20 @@ the final ``ok`` line:
      final errors must agree;
   8. times at the Venice shape: H4 and H5 beside their plain versions,
      ms/sweep of both pipelines with and without the accelerator, and the
-     accelerator's cost per chunk.
+     accelerator's cost per chunk;
+  9. the coarse corrector at the Ladybug shape (cameras in their generated
+     order): GBPConfig(coarse_groups=16), 400 sweeps, each boundary's
+     accelerator and coarse decisions, the final error against
+     kernels="reference", one coarse step's time, and the group sums (H3
+     over group-keyed segments) against their plain version;
+  10. the ba driver in process (``drivers.ba.main``) at the Ladybug shape
+     written as a BAL file, with its defaults (coarse corrector over 16
+     groups, LM polish): 600 sweeps with checkpoints, trajectory and the
+     GN check; a resume to 1,000; the same 1,000 sweeps uninterrupted,
+     whose lines the resumed ones must equal; launch counts per run;
+  11. the driver's polish (15 warm-started LM/Schur iterations) at the
+     Venice shape from the means phase 6 left: per-iteration cost and
+     decision, ms per LM iteration, peak device memory.
 
 The last lines are one JSON object of per-kernel results, the card's
 ``name, power.limit`` as nvidia-smi prints it, and
@@ -77,6 +90,15 @@ SWEEP_RTOL = 1e-4          # edge fields, relative to 1 + max |field|
 SWEEP_FLIP_FRAC = 1e-3     # lanes whose discrete outputs may differ
 MAIN_AGREE_PX = 0.05       # final error: kernels vs reference, px ...
 MAIN_AGREE_REL = 0.02      # ... or this fraction, whichever is larger
+
+# the coarse corrector and the ba driver (phases 9-11), at the ba driver's
+# defaults: 16 keyframe groups, an accelerator step every 50 sweeps from
+# sweep 150, spans of 200 sweeps, 15 polish iterations
+COARSE_GROUPS = 16
+COARSE_SWEEPS = 400
+DRIVER_SWEEPS = (600, 1000)      # run 1, then resumed / uninterrupted
+CHECKPOINT_EVERY = 200
+POLISH_ITERS = 15
 
 
 def smi_line() -> str:
@@ -135,6 +157,278 @@ def shuffle_cameras(prob, seed: int = 0):
         cam_means=moved(prob.cam_means), intrinsics=moved(prob.intrinsics))
 
 
+def agree(label: str, err, err_r) -> None:
+    """Final errors of the kernels' run and the plain run within the
+    MAIN_AGREE bounds."""
+    import numpy as np
+
+    gap = abs(float(err[-1]) - float(err_r[-1]))
+    bound = max(MAIN_AGREE_PX, MAIN_AGREE_REL * float(err_r[-1]))
+    print(f"{label} reference: error {err_r[-1]:.4f} px after {len(err_r)} "
+          f"sweeps; |kernels - reference| {gap:.6f} px (bound {bound:.4f}), "
+          f"largest per-sweep difference {np.abs(err - err_r).max():.6f} px")
+    check(bool(np.isfinite(err_r).all()) and gap <= bound,
+          f"{label} kernels and reference disagree")
+
+
+def coarse_phase(prob, dev, reset_counts, read_counts, card):
+    """Phase 9: run_gbp with the coarse corrector at the Ladybug shape,
+    cameras in their generated order: every boundary's decisions, the
+    final error against kernels="reference", one coarse step's time, and
+    the group sums (H3 over the group-keyed segments) against their plain
+    version. Returns (launch counts, largest group-sum difference)."""
+    import numpy as np
+    import torch
+
+    from gbp_poplar_tpu_torch.config import GBPConfig
+    from gbp_poplar_tpu_torch.core import build_graph, coarse, gbp, init_state
+
+    cfg = GBPConfig(coarse_groups=COARSE_GROUPS)
+    graph = build_graph(prob, cfg, dev)
+    reset_counts()
+    s = gbp.initialise(init_state(prob, cfg, dev), graph, cfg)
+    err0 = gbp.reprojection_error(s, graph)[0].item()
+    log = []
+    s, diag = gbp.run_gbp(s, graph, cfg, COARSE_SWEEPS, accel_log=log)
+    launches = read_counts()
+    err = diag.reproj_err.cpu().numpy()
+    for n_at, st in log:
+        c = st.coarse
+        moved = bool(st.accepted) and st.gain.item() > 0
+        print(f"[coarse] after sweep {n_at}: accelerator gain "
+              f"{st.gain.item():.4f} {'applied' if moved else 'not applied'} "
+              f"(MAP cost {st.cost_cur.item():.9e} -> candidate "
+              f"{st.cost_cand.item():.9e}); coarse gain {c.gain.item():g} "
+              f"(cost to beat {c.cost_cur.item():.9e}, scale 1 "
+              f"{c.cost_cand[0].item():.9e}, scale 0.3 "
+              f"{c.cost_cand[1].item():.9e})")
+    n_coarse = sum(st.coarse.gain.item() > 0 for _, st in log)
+    print(f"[coarse] kernels: error {err0:.4f} px after initialise -> "
+          f"{err[-1]:.4f} px after {COARSE_SWEEPS} sweeps (min "
+          f"{err.min():.4f}); {n_coarse} of {len(log)} coarse steps "
+          f"applied; launches {launches}")
+    check(bool(np.isfinite(err).all()) and err[-1] < err0,
+          "coarse path: error did not fall")
+    check([n for n, _ in log] == [160, 210, 260, 310, 360],
+          "coarse path: the steps did not come at 160, 210, ..., 360")
+    check(all(st.coarse is not None for _, st in log),
+          "coarse path: an accelerator step without its coarse step")
+    check(launches["sweep"] == COARSE_SWEEPS
+          and launches["table"] >= 2 * COARSE_SWEEPS
+          and launches["reduce"] >= 2 * COARSE_SWEEPS,
+          "coarse path did not go through H1, H2, H3 every sweep")
+
+    ref = dataclasses.replace(cfg, kernels="reference")
+    s_r = gbp.initialise(init_state(prob, ref, dev), graph, ref)
+    _, diag_r = gbp.run_gbp(s_r, graph, ref, COARSE_SWEEPS)
+    agree("[coarse]", err, diag_r.reproj_err.cpu().numpy())
+    del s_r, diag_r
+
+    degs = gbp._active_degrees(s, graph, cfg)
+    st = s.clone()
+    cost = gbp.map_cost(st, graph, cfg)
+    step_ms = cuda_ms(lambda: gbp._coarse_step(st, graph, cfg, degs,
+                                               cost=cost), 5)
+    inc_ms = cuda_ms(lambda: coarse.coarse_increment(
+        st, graph, cfg, *gbp._variable_means(st)), 5)
+    print(f"[coarse] one coarse step {step_ms:.4f} ms (the increment "
+          f"{inc_ms:.4f} ms) at {graph.n_edges} padded edges, "
+          f"{COARSE_GROUPS} groups ({card})")
+    del st
+
+    segs = coarse.group_segments(graph, COARSE_GROUPS)
+    x = torch.randn((graph.n_edges, 6, 6), device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(0))
+    worst = 0.0
+    for label, seg in (("edges by camera group", segs.edge_cam),
+                       ("edges by landmark group", segs.edge_lmk),
+                       ("edges by group pair", segs.edge_pair)):
+        k = coarse._group_sum(x, seg, ref=False)
+        r = coarse._group_sum(x, seg, ref=True)
+        scale = coarse._group_sum(x.abs(), seg, ref=True)
+        diff = (k - r).abs()
+        rel = (diff / (scale + 1e-30)).max().item()
+        again = torch.equal(coarse._group_sum(x, seg, ref=False), k)
+        print(f"[H3] coarse sums, {label} ({seg.n_var} segments): max "
+              f"|kernel - plain| {diff.max().item():.3e} (relative to sum "
+              f"|terms| {rel:.3e}, bound {REDUCE_RTOL}); bit-identical on "
+              f"rerun: {again}")
+        check(again and rel <= REDUCE_RTOL, f"coarse sums {label} differ")
+        worst = max(worst, diff.max().item())
+    return launches, worst
+
+
+def driver_phase(raw, dev, reset_counts, read_counts, card):
+    """Phase 10: the ba driver in process at the Ladybug shape with its
+    defaults: a run with checkpoints, trajectory and the GN check, its
+    resume, and the same sweeps uninterrupted, which the resumed lines
+    must equal. Returns the launch counts of the three runs."""
+    import contextlib
+    import io
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from gbp_poplar_tpu_torch.core import gauss_newton as gn
+    from gbp_poplar_tpu_torch.drivers import ba
+    from gbp_poplar_tpu_torch.utils import balio
+
+    n1, n2 = DRIVER_SWEEPS
+    timed = {}
+    real_lm, real_problem = gn.solve_lm, gn.solve_problem
+
+    def timing(label, fn):
+        def run(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            timed.setdefault(label, []).append(time.perf_counter() - t0)
+            return out
+        return run
+
+    def drive(*argv):
+        reset_counts()
+        torch.cuda.reset_peak_memory_stats()
+        out, err = io.StringIO(), io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+            rc = ba.main([str(a) for a in argv])
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        lines = [ln for ln in out.getvalue().splitlines()
+                 if ln.startswith("iter")]
+        err = err.getvalue()
+        for ln in err.splitlines():
+            print(f"[driver]   {ln}")
+        n_run = int(argv[argv.index("--n_iters") + 1])
+        first = int(lines[0].split()[1]) if lines else -1
+        print(f"[driver]   exit {rc}, {len(lines)} iteration lines, {wall:.1f}"
+              f" s wall, peak device memory {peak:.2f} GiB, launches "
+              f"{counts}")
+        check(rc == 0, "ba driver failed")
+        swept = n_run - first
+        check(len(lines) == swept and counts["sweep"] == swept
+              and counts["table"] >= 2 * swept
+              and counts["reduce"] >= 2 * swept,
+              "ba driver did not go through H1, H2, H3 every sweep")
+        return lines, err, counts
+
+    def after(err, key):
+        return err.split(key)[1].split()[0]
+
+    launches = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        bal = os.path.join(tmp, "ladybug.txt")
+        t0 = time.perf_counter()
+        balio.save_bal(bal, raw)
+        t_write = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        balio.load_bal(bal)
+        t_parse = time.perf_counter() - t0
+        print(f"[driver] Ladybug shape as a BAL file: "
+              f"{os.path.getsize(bal) / 2**20:.1f} MiB, written in "
+              f"{t_write:.2f} s, parsed in {t_parse:.2f} s")
+        ckpt, traj = os.path.join(tmp, "c.npz"), os.path.join(tmp, "t.txt")
+        base = ("--bal_file", bal, "--ltn", LMK_NOISE)
+        gn.solve_lm = timing("polish", real_lm)
+        gn.solve_problem = timing("gn_check", real_problem)
+        try:
+            print(f"[driver] run 1: {n1} sweeps, defaults, checkpoint every "
+                  f"{CHECKPOINT_EVERY}, trajectory, --gn_check")
+            lines1, err1, c1 = drive(*base, "--n_iters", n1, "--checkpoint",
+                                     ckpt, "--checkpoint_every",
+                                     CHECKPOINT_EVERY, "--save_traj", traj,
+                                     "--gn_check")
+            rows = np.loadtxt(traj)
+            e_first, e_last = (float(lines1[i].split()[3]) for i in (0, -1))
+            check(e_last < e_first, "ba driver: the error did not fall")
+            check(rows.shape == (raw.n_keyframes, 8)
+                  and bool(np.isfinite(rows).all()),
+                  "ba driver: bad trajectory")
+            check("polish: reproj" in err1 and "host oracle: reproj_err"
+                  in err1 and "GN baseline" in err1,
+                  "ba driver: no polish, host oracle or GN line")
+            # solve_lm's first call is the polish, its second the GN check's
+            t_polish = timed["polish"][0]
+            lm_ms = t_polish / POLISH_ITERS * 1e3
+            print(f"[driver] run 1: error {e_first:.4f} -> {e_last:.4f} px; "
+                  f"polish {t_polish:.3f} s ({lm_ms:.1f} ms per LM "
+                  f"iteration) to {after(err1, 'polish: reproj')} "
+                  f"px; GN check {timed['gn_check'][0]:.3f} s, its error "
+                  f"{after(err1, 'GN baseline: reproj_err')} px, ATE(GBP vs "
+                  f"GN) {after(err1, 'ATE(GBP vs GN)')} m; host oracle "
+                  f"{after(err1, 'host oracle: reproj_err')} px; "
+                  f"{len(rows)} trajectory rows ({card})")
+            print(f"[driver] run 2: resume at {n1}, to {n2}")
+            lines2, _, c2 = drive(*base, "--resume", ckpt, "--n_iters", n2)
+            print(f"[driver] run 3: {n2} sweeps uninterrupted")
+            lines3, err3, c3 = drive(*base, "--n_iters", n2)
+        finally:
+            gn.solve_lm, gn.solve_problem = real_lm, real_problem
+    check(lines2[0].split()[1] == str(n1),
+          "resume did not start at run 1's end")
+    same_lines = lines2 == lines3[n1:]
+    print(f"[driver] resumed lines {n1}-{n2 - 1} equal the uninterrupted "
+          f"run's: {same_lines}; steady state {after(err3, 'steady-state')} "
+          f"sweeps/s over {n2} sweeps with per-sweep telemetry ({card})")
+    check(same_lines, "resume is not bit-exact")
+    for c in (c1, c2, c3):
+        for k, n in c.items():
+            launches[k] = launches.get(k, 0) + n
+    return launches
+
+
+def lm_phase(prob, means, cfg, dev, reset_counts, read_counts, card):
+    """Phase 11: the driver's polish (15 warm-started LM/Schur iterations,
+    ``ba._polish_problem``) at the Venice shape, from the means the Venice
+    main path left. Returns the launch counts."""
+    import numpy as np
+    import torch
+
+    from gbp_poplar_tpu_torch.core import gauss_newton as gn
+    from gbp_poplar_tpu_torch.drivers import ba
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated() / 2**30
+    reset_counts()
+    t0 = time.perf_counter()
+    graph1, pri = ba._polish_problem(prob, cfg, dev)
+    cam0 = torch.tensor(means[0], device=dev)
+    lmk0 = torch.tensor(means[1], device=dev)
+    cost0 = gn.map_cost(cam0, lmk0, graph1, pri, cfg).item()
+    t_build = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = gn.solve_lm(cam0, lmk0, graph1, pri, cfg, n_lm_iters=POLISH_ITERS)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = read_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    costs = res.cost.cpu().numpy()
+    acc = res.accepted.cpu().numpy()
+    errs = res.reproj_err.cpu().numpy()
+    print(f"[lm] Venice shape: exact-edge graph and priors in {t_build:.2f} s;"
+          f" MAP cost {cost0:.6e} at the start")
+    for i, (c, a, e) in enumerate(zip(costs, acc, errs)):
+        print(f"[lm]   iteration {i + 1}: cost {c:.6e}, "
+              f"{'accepted' if a else 'rejected'}, error {e:.5f} px")
+    print(f"[lm] {POLISH_ITERS} iterations in {dt:.3f} s: "
+          f"{dt / POLISH_ITERS * 1e3:.2f} ms per LM iteration at "
+          f"{graph1.n_edges} edges; peak device memory {peak:.2f} GiB "
+          f"({base:.2f} GiB held before); launches {launches} ({card})")
+    check(bool(torch.isfinite(res.cam).all() and torch.isfinite(res.lmk).all()
+               and np.isfinite(costs).all()), "LM: non-finite result")
+    check(costs[0] <= cost0 and bool(np.all(np.diff(costs) <= 0)),
+          "LM: the cost rose")
+    check(launches["reduce"] > 0, "LM did not go through H3")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -149,7 +443,7 @@ def main() -> int:
     from gbp_poplar_tpu_torch.core import gbp, init_state
     from gbp_poplar_tpu_torch.ops import _cuda, reduce_kernel, sweep_kernel
     from gbp_poplar_tpu_torch.ops import table_kernel
-    from gbp_poplar_tpu_torch.utils import balio, priors
+    from gbp_poplar_tpu_torch.utils import analysis, balio, priors
 
     dev = torch.device("cuda", 0)
     name = torch.cuda.get_device_name(0)
@@ -235,9 +529,9 @@ def main() -> int:
         check(rel <= REDUCE_RTOL, f"reduce {label}: sums differ")
         return diff.max().item()
 
-    prob_l = priors.apply_init_noise(
-        balio.synthetic_problem_large(*LADYBUG_SHAPE),
-        InitConfig(lmk_noise=LMK_NOISE, seed=0))
+    raw_l = balio.synthetic_problem_large(*LADYBUG_SHAPE)
+    prob_l = priors.apply_init_noise(raw_l, InitConfig(lmk_noise=LMK_NOISE,
+                                                       seed=0))
     graph_l = build_graph(prob_l, cfg, dev)
     e_l = graph_l.n_edges
     print(f"[main] Ladybug shape: {prob_l.n_keyframes} keyframes, "
@@ -402,7 +696,7 @@ def main() -> int:
                       1) / TIMED_SWEEPS
     print(f"[main] kernels with diagnostics: {diag_ms:.4f} ms/sweep "
           f"({card})")
-    del s, s_r, s0, graph_l, prob_l, diag, diag_r
+    del s, s_r, s0, graph_l, diag, diag_r
     torch.cuda.empty_cache()
 
     # the one-call entry point with the library defaults (GBPConfig():
@@ -596,6 +890,19 @@ def main() -> int:
           f"chunk averages {means_ms:.4f} ms per sweep ({card})")
     del st
 
+    # phase 11 polishes the means phase 6 left; the Venice state and graph
+    # are freed before the Ladybug phases
+    venice_means = analysis.belief_means(s)
+    del s, graph_v, degs, cam_mu, lmk_mu, snap, avg
+    torch.cuda.empty_cache()
+    launches_c, h3_group_err = coarse_phase(prob_l, dev, reset_counts,
+                                            read_counts, card)
+    h3_err = max(h3_err, h3_group_err)
+    launches_d = driver_phase(raw_l, dev, reset_counts, read_counts, card)
+    del raw_l, prob_l
+    launches_lm = lm_phase(prob_v, venice_means, cfg_u, dev, reset_counts,
+                           read_counts, card)
+
     replaces = {
         "sweep": ("gbp_poplar_tpu_torch/csrc/sweep.cu",
                   "gbp_poplar_tpu/ops/sweep_kernel.py:274", h1_err),
@@ -608,7 +915,9 @@ def main() -> int:
         "gather": ("gbp_poplar_tpu_torch/csrc/gather.cu",
                    "gbp_poplar_tpu/ops/reduce_kernel.py:439", h5_err),
     }
-    launches = {k: launches_l[k] + launches_v[k] for k in replaces}
+    launches = {k: sum(run[k] for run in (launches_l, launches_v, launches_c,
+                                          launches_d, launches_lm))
+                for k in replaces}
     check(all(n > 0 for n in launches.values()),
           "a kernel was never launched by the main paths")
     print(json.dumps({"kernels": [

@@ -7,9 +7,12 @@ body, held against the JAX functions on the same inputs by the tests in
 tests/test_torch_*.py. This package never imports JAX.
 
 Ported so far: the batch GBP bundle-adjustment solve with the fixed-point
-accelerator, on the fused and the unfused sweep pipeline (``GBPConfig()``
-as it stands runs); not yet the coarse corrector (``coarse_groups > 0``
-raises NotImplementedError). ROADMAP.md lists what remains.
+accelerator and the coarse corrector, on the fused and the unfused sweep
+pipeline; the Levenberg-Marquardt/Schur oracle (core/gauss_newton.py) and
+the intrinsics refit; checkpoints in the JAX package's format; trajectory
+evaluation; and the ``ba`` command line with the JAX driver's flags and
+defaults (``python -m gbp_poplar_tpu_torch.drivers.ba``). Not yet: SLAM,
+sharding over several devices. ROADMAP.md lists what remains.
 """
 
 import torch

@@ -129,6 +129,10 @@ class GBPGraph:
     first_uv: torch.Tensor      # [2, L] pixel of the first observation
     cam_seg: Segments           # camera-side segmented sum
     lmk_seg: Segments           # landmark-side segmented sum
+    # segments derived once per graph by later stages (the coarse
+    # corrector's group sums, core/coarse.group_segments), by key
+    derived: dict = dataclasses.field(default_factory=dict, repr=False,
+                                      compare=False)
 
     @property
     def n_keyframes(self) -> int:

@@ -1,13 +1,15 @@
 """Synchronous Gaussian Belief Propagation — the batch solve.
 
 The PyTorch counterpart of the slice of ``gbp_poplar_tpu/core/gbp.py`` that
-the batch bundle-adjustment solve runs without the coarse corrector:
+the batch bundle-adjustment solve runs:
 
   initialise (beliefs <- priors, linearise every factor)
   run_gbp:   2*steps annealed iterations (prior weakening, then a sweep),
              then anneal-free sweeps, in chunks of ``accel_every`` with a
              fixed-point extrapolation (``_accel_step``) after each chunk
-             from ``accel_start`` on; diagnostics after every sweep.
+             from ``accel_start`` on, followed by the coarse-space
+             correction (``_coarse_step``, core/coarse.py) when
+             ``coarse_groups > 0``; diagnostics after every sweep.
 
 One sweep is one of two pipelines (``cfg.fused``), each of kernels with
 their plain PyTorch versions, chosen by the tensors' device and
@@ -39,6 +41,7 @@ import torch
 from ..config import GBPConfig
 from ..ops import planes as pl
 from ..ops import reduce_kernel, sweep_kernel, table_kernel
+from . import coarse
 from .factor_graph import (CAM_DOF, LMK_DOF, MSG_CAM_ROWS, MSG_LMK_ROWS,
                            GBPGraph, GBPState)
 
@@ -339,6 +342,9 @@ class Diagnostics(NamedTuple):
     cost: torch.Tensor         # 0.5 * sum ||r||^2
     n_relins: torch.Tensor     # edges that just relinearised
     n_robust: torch.Tensor     # edges with Huber active
+    # camera belief means [6, C], only with ``verbose_means`` (the ba
+    # driver's --v prints them after every sweep)
+    cam_means: torch.Tensor | None = None
 
 
 def reprojection_error(state: GBPState, graph: GBPGraph):
@@ -364,14 +370,15 @@ def reprojection_error(state: GBPState, graph: GBPGraph):
     return mean_err, cost
 
 
-def diagnostics(state: GBPState, graph: GBPGraph,
-                cfg: GBPConfig) -> Diagnostics:
+def diagnostics(state: GBPState, graph: GBPGraph, cfg: GBPConfig,
+                with_cam_means: bool = False) -> Diagnostics:
     err, cost = reprojection_error(state, graph)
     act = state.active > 0
     n_relins = torch.sum(
         (state.damping_count == -cfg.num_undamped_iters) & act)
     n_robust = torch.sum(state.robust & act)
-    return Diagnostics(err, cost, n_relins, n_robust)
+    cam_means = _variable_means(state)[0] if with_cam_means else None
+    return Diagnostics(err, cost, n_relins, n_robust, cam_means)
 
 
 # ---------------------------------------------------------------------------
@@ -408,13 +415,28 @@ def iteration(state: GBPState, graph: GBPGraph, cfg: GBPConfig,
 # a chunk boundary adds no host synchronisation. The per-edge gathers stay
 # plain index_select, as the JAX package keeps jnp.take there.
 
+class CoarseStep(NamedTuple):
+    """What one ``_coarse_step`` decided (device tensors)."""
+
+    gain: torch.Tensor        # scale applied: 1.0, 0.3, or 0 (rejected)
+    cost_cur: torch.Tensor    # MAP cost the candidates had to beat
+    cost_cand: torch.Tensor   # [2] MAP costs at the two scales' means
+
+
 class AccelStep(NamedTuple):
-    """What one ``_accel_step`` decided (0-d device tensors)."""
+    """What one ``_accel_step`` decided (0-d device tensors), and the
+    coarse step that followed it, if any."""
 
     gain: torch.Tensor        # extrapolation gain of the candidate jump
     accepted: torch.Tensor    # cost_cand <= cost_cur: the jump was applied
     cost_cur: torch.Tensor    # MAP cost at the current means
     cost_cand: torch.Tensor   # MAP cost at the candidate's means
+    coarse: CoarseStep | None = None
+
+    @property
+    def cost_kept(self) -> torch.Tensor:
+        """The MAP cost of the state the step kept."""
+        return torch.where(self.accepted, self.cost_cand, self.cost_cur)
 
 
 def _prior_quad(lam_planes, eta_planes, mu_planes, d):
@@ -606,13 +628,53 @@ def _accel_step(state: GBPState, snap, avg, graph: GBPGraph,
     return state, snap, AccelStep(gain, better, cost_cur, cost_cand)
 
 
+def _coarse_step(state: GBPState, graph: GBPGraph, cfg: GBPConfig, degs,
+                 cost: torch.Tensor | None = None):
+    """Coarse-space correction (core/coarse.py): solve the MAP increment in
+    the per-group rigid subspace and apply it at scale 1 or 0.3, whichever
+    lowers the MAP cost most below ``cost`` (the caller's cost of
+    ``state``, ``AccelStep.cost_kept``; computed here when None), or not
+    at all. Both scales are priced at their exact means from one stacked
+    gather and the chosen one is applied once (``_apply_shift``). Returns
+    (state, CoarseStep)."""
+    cam_mu, lmk_mu = _variable_means(state)
+    d_cam, d_lmk = coarse.coarse_increment(state, graph, cfg, cam_mu, lmk_mu)
+    cam_deta, lmk_deta = _mean_shift_etas(state, d_cam, d_lmk, degs)
+    dmsg_c, dmsg_l = _msg_shares(cam_deta, lmk_deta, degs)
+    scales = (1.0, 0.3)
+    cands = [_cand_means(state, cam_deta, lmk_deta, s) for s in scales]
+    # gather the current means only when the caller did not price them
+    mu_groups = int(cost is None)
+    cg, lg = _shift_gather(
+        graph, [cam_mu] * mu_groups + [c for c, _ in cands] + [dmsg_c],
+        [lmk_mu] * mu_groups + [l for _, l in cands] + [dmsg_l])
+    parts = []
+    if cost is None:
+        parts.append(_cost_parts(state, graph, cfg, cg[0], lg[0],
+                                 cam_mu, lmk_mu))
+    for i, (cand_c, cand_l) in enumerate(cands):
+        parts.append(_cost_parts(state, graph, cfg, cg[mu_groups + i],
+                                 lg[mu_groups + i], cand_c, cand_l))
+    costs = _combine_costs(parts)
+    if cost is None:
+        cost, costs = costs[0], costs[1:]
+    best = cost
+    gain = torch.zeros((), dtype=cam_mu.dtype, device=cam_mu.device)
+    for s, c in zip(scales, costs):
+        better = c < best
+        gain = torch.where(better, s, gain)
+        best = torch.where(better, c, best)
+    state = _apply_shift(state, cg[-1], lg[-1], cam_deta, lmk_deta, gain)
+    return state, CoarseStep(gain, cost, costs)
+
+
 # ---------------------------------------------------------------------------
 # full solves
 # ---------------------------------------------------------------------------
 
 def run_gbp(state: GBPState, graph: GBPGraph, cfg: GBPConfig, n_iters: int,
             with_diagnostics: bool = True, iter_offset: int = 0,
-            accel_log: list | None = None):
+            accel_log: list | None = None, verbose_means: bool = False):
     """Run ``n_iters`` GBP iterations. Returns (state, Diagnostics of
     [n_iters] tensors, or None without diagnostics). The state is updated
     in place.
@@ -627,15 +689,16 @@ def run_gbp(state: GBPState, graph: GBPGraph, cfg: GBPConfig, n_iters: int,
     averaged sanitised means; leftover sweeps run after the chunks. Chunks
     that end before ``accel_start`` run as plain sweeps (the JAX package's
     static dead-chunk elision): only the last of them averages its means,
-    which seeds the first live step. ``accel_log``, if given, receives
-    (sweep count at the boundary, AccelStep) per accelerator step.
-
-    The coarse corrector (``coarse_groups > 0``) is not ported yet: it
-    raises NotImplementedError rather than run a different schedule."""
-    if cfg.coarse_groups > 0:
-        raise NotImplementedError(
-            "the coarse corrector is not ported yet (ROADMAP.md, A6): use "
-            f"coarse_groups=0 (got coarse_groups={cfg.coarse_groups})")
+    which seeds the first live step. With ``cfg.coarse_groups > 0`` a
+    ``_coarse_step`` follows each live accelerator step, as in the JAX
+    package, where the coarse step runs only inside accelerator chunks
+    (so with ``accel_every = 0`` it never runs). A chunk the JAX package
+    gates under a traced offset keeps its previous displacement and gets
+    gain 0 from both steps, so the elided schedule here is the same one.
+    ``accel_log``, if given, receives (sweep count at the boundary,
+    AccelStep with its ``coarse`` record) per accelerator step.
+    ``verbose_means`` also stacks each sweep's camera means into
+    ``Diagnostics.cam_means``."""
     diags = []
 
     def sweeps(s, n, collect=False, anneal_from=None):
@@ -651,7 +714,7 @@ def run_gbp(state: GBPState, graph: GBPGraph, cfg: GBPConfig, n_iters: int,
             else:
                 s = gbp_sweep(s, graph, cfg)
             if with_diagnostics:
-                diags.append(diagnostics(s, graph, cfg))
+                diags.append(diagnostics(s, graph, cfg, verbose_means))
             if collect:
                 mc, ml = _sanitized_means(s, cfg)
                 sums = (sums[0] + mc, sums[1] + ml)
@@ -679,13 +742,18 @@ def run_gbp(state: GBPState, graph: GBPGraph, cfg: GBPConfig, n_iters: int,
             state, sums = sweeps(state, ce, collect=True)
             state, snap, info = _accel_step(
                 state, snap, (sums[0] / ce, sums[1] / ce), graph, cfg, degs)
+            if cfg.coarse_groups > 0:
+                state, cinfo = _coarse_step(state, graph, cfg, degs,
+                                            cost=info.cost_kept)
+                info = info._replace(coarse=cinfo)
             if accel_log is not None:
                 accel_log.append((off2 + (c + 1) * ce, info))
         n2 -= n_chunks * ce
     state, _ = sweeps(state, n2)
     if not with_diagnostics or not diags:
         return state, None
-    return state, Diagnostics(*(torch.stack(x) for x in zip(*diags)))
+    return state, Diagnostics(*(None if x[0] is None else torch.stack(x)
+                                for x in zip(*diags)))
 
 
 def solve(state: GBPState, graph: GBPGraph, cfg: GBPConfig,

@@ -52,6 +52,12 @@ def unpack_sym(p: torch.Tensor, d: int) -> list[list[torch.Tensor]]:
     return m
 
 
+def unpack_sym_dense(p: torch.Tensor, d: int) -> torch.Tensor:
+    """Packed symmetric [n_slots, N] -> dense [N, d, d]."""
+    rows = unpack_sym(p, d)
+    return torch.stack([torch.stack(r, dim=-1) for r in rows], dim=-2)
+
+
 def pack_sym(m: list[list[torch.Tensor]], d: int) -> torch.Tensor:
     idx = SYM6_IDX if d == 6 else SYM3_IDX
     return torch.stack([m[i][j] for (i, j) in idx])

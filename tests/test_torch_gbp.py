@@ -195,16 +195,43 @@ def test_solve_matches_jax_by_outcome(synthetic):
     np.testing.assert_allclose(err, et[-1], rtol=1e-3)
 
 
-@pytest.mark.parametrize("kw", [dict(accel_every=50), dict(accel_every=0)],
+@pytest.mark.parametrize("kw", [dict(accel_every=8, accel_start=10),
+                                dict(accel_every=0)],
                          ids=["accel", "coarse"])
 def test_run_gbp_refuses_unported_schedules(synthetic, kw):
-    """The coarse corrector is not ported: run_gbp refuses coarse_groups
-    > 0, with the (ported) accelerator on ("accel") or off ("coarse")."""
-    cfg = GBPConfig(coarse_groups=4, **kw)
-    graph = fg.build_graph(synthetic, cfg, "cpu")
-    state = fg.init_state(synthetic, cfg, "cpu")
-    with pytest.raises(NotImplementedError, match="A6"):
-        gbp.run_gbp(state, graph, cfg, 10)
+    """run_gbp with the coarse corrector (coarse_groups=3) runs and follows
+    the JAX run_gbp on the conftest problem, 48 sweeps: with the
+    accelerator on ("accel") a coarse step follows each of its steps; with
+    accel_every=0 ("coarse") the JAX package runs no coarse step (it lives
+    inside the accelerator's chunks), and neither does the port: the run
+    equals the one with coarse_groups=0 to the bit."""
+    n = 48
+    jc = JaxConfig(use_pallas=False, edge_pad_multiple=PAD, coarse_groups=3,
+                   **kw)
+    jg = jax_build_graph(synthetic, jc)
+    js = jax.jit(lambda s: jax_gbp.initialise(s, jg, jc))(
+        jax_init_state(synthetic, jc))
+    _, dj = jax.jit(lambda s: jax_gbp.run_gbp(s, jg, jc, n))(js)
+    want = np.asarray(dj.reproj_err)
+
+    def port(groups):
+        cfg = GBPConfig(edge_pad_multiple=PAD, coarse_groups=groups, **kw)
+        graph = fg.build_graph(synthetic, cfg, "cpu")
+        state = gbp.initialise(fg.init_state(synthetic, cfg, "cpu"), graph,
+                               cfg)
+        log = []
+        _, d = gbp.run_gbp(state, graph, cfg, n, accel_log=log)
+        return d.reproj_err.numpy(), log
+
+    err, log = port(3)
+    assert err.shape == (n,) and np.isfinite(err).all() and err[-1] < err[0]
+    np.testing.assert_allclose(err, want, rtol=0, atol=1e-3)
+    if kw["accel_every"]:
+        assert [k for k, _ in log] == [18, 26, 34, 42]
+        assert all(info.coarse is not None for _, info in log)
+    else:
+        assert log == []
+        np.testing.assert_array_equal(err, port(0)[0])
 
 
 def test_reprojection_error_is_nan_without_valid_edges(synthetic):
