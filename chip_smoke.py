@@ -8,13 +8,16 @@ the final ``ok`` line:
   1. environment: torch/CUDA versions, the card's name and power limit;
      a CUDA device is required;
   2. build the hand-written kernels (csrc/*.cu) with nvcc, one process per
-     source, and print each kernel's registers and spills;
+     source, and print each kernel's registers and spills and H1's launch
+     shape;
   3. the fused path's kernels against their plain PyTorch versions on the
      card: the table build (H2) and the segmented sum (H3) on random inputs
      and at the Ladybug shape; one fused sweep (H1) on the small pinhole
      problem, the Snavely problem and the Ladybug-shape state after
      initialise + 20 sweeps; then each kernel's time beside its plain
-     version's;
+     version's, its bound (the larger of its bytes over 3.35 TB/s and its
+     operations over 67 TFLOP/s) and, for H3, the one library call that
+     computes the same function (``torch.index_add``), per variable kind;
   4. the fused main path at the Ladybug shape (synthetic_problem_large(
      1723, 156000, 7): 1,092,000 edges, 1,092,608 padded), reference
      schedule (accel_every=0): build_graph / init_state on the card,
@@ -36,9 +39,11 @@ the final ``ok`` line:
      steps, the launch counts, peak device memory;
   7. the same solve with kernels="reference" and with fused=True: the
      final errors must agree;
-  8. times at the Venice shape: H4 and H5 beside their plain versions,
-     ms/sweep of both pipelines with and without the accelerator, and the
-     accelerator's cost per chunk;
+  8. times at the Venice shape: H4 and H5 beside their plain versions
+     and bounds (H5's plain version, ``index_select``, is its library
+     call), H1 and H3 per variable kind with their bounds and H3's
+     ``index_add``, ms/sweep of both pipelines with and without the
+     accelerator, and the accelerator's cost per chunk;
   9. the coarse corrector at the Ladybug shape (cameras in their generated
      order): GBPConfig(coarse_groups=16), 400 sweeps, each boundary's
      accelerator and coarse decisions, the final error against
@@ -53,7 +58,9 @@ the final ``ok`` line:
      Venice shape from the means phase 6 left: per-iteration cost and
      decision, ms per LM iteration, peak device memory.
 
-The last lines are one JSON object of per-kernel results, the card's
+The last lines are one JSON object of per-kernel results (launches on
+the main paths, largest difference from the plain version, kernel, plain
+and library ms, the bound and what bounds it), the card's
 ``name, power.limit`` as nvidia-smi prints it, and
 ``{"ok": true, "device": {...}}``.
 """
@@ -99,6 +106,117 @@ COARSE_SWEEPS = 400
 DRIVER_SWEEPS = (600, 1000)      # run 1, then resumed / uninterrupted
 CHECKPOINT_EVERY = 200
 POLISH_ITERS = 15
+
+
+# The card's peaks (H100 SXM, NVIDIA's data sheet): HBM3 bytes/s and
+# float32 operations/s outside the tensor cores. A kernel's bound is the
+# larger of its bytes and its operations over these.
+HBM_BYTES_PER_S = 3.35e12
+FP32_OPS_PER_S = 67e12
+
+# aten operations counted as one float32 operation per output element when
+# the plain versions are run under count_ops (data movement is not counted)
+_COUNTED_OPS = {
+    "add", "sub", "mul", "div", "neg", "sqrt", "rsqrt", "reciprocal",
+    "where", "eq", "ne", "lt", "le", "gt", "ge", "abs", "sin", "cos",
+    "logical_and", "logical_or", "logical_not", "bitwise_and", "bitwise_or",
+    "bitwise_not", "isfinite", "isnan", "isinf", "clamp", "clamp_min",
+    "clamp_max", "minimum", "maximum", "square", "pow", "sum", "prod",
+    "exp", "log", "sign", "sgn", "masked_fill", "lerp",
+}
+
+
+def count_ops(fn) -> int:
+    """Float operations of ``fn()`` (a plain version on its real inputs):
+    the elements written by each counted elementwise aten operation."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Count(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            name = func.overloadpacket.__name__.rstrip("_")
+            if name in _COUNTED_OPS:
+                for t in (out if isinstance(out, (tuple, list)) else (out,)):
+                    if hasattr(t, "numel"):
+                        Count.n += t.numel()
+            return out
+
+    with Count():
+        fn()
+    return Count.n
+
+
+def least_ms(n_bytes: float, n_ops: float) -> tuple[float, str]:
+    """The least time (ms) the card could take for work that moves
+    ``n_bytes`` (each input read once, each output written once) and does
+    ``n_ops`` float32 operations, and which of the two bounds it."""
+    t_b = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_o = n_ops / FP32_OPS_PER_S * 1e3
+    return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
+
+
+def sweep_bytes(graph, gathered: bool) -> int:
+    """Bytes one sweep must move: the packed state, counter and flag read
+    and written, the per-edge constants read, and the belief tables (H1)
+    or the gathered belief planes (H4) read once."""
+    from gbp_poplar_tpu_torch.core import factor_graph as fg
+    from gbp_poplar_tpu_torch.ops.table_kernel import CAM_WIDTH, LMK_WIDTH
+
+    per_edge = (2 * 4 * fg.EDGE_PACK_ROWS + 2 * 4 + 2 * 1   # pk, dc, rb
+                + 4 + 2 * 4 + 4                             # active, meas
+                + (12 if graph.intr is not None else 0))
+    if gathered:
+        return graph.n_edges * (per_edge + 4 * (fg.CAM_COMP + fg.LMK_COMP))
+    return (graph.n_edges * (per_edge + 8)                  # cam/lmk ids
+            + 4 * (graph.n_keyframes * CAM_WIDTH
+                   + graph.n_points * LMK_WIDTH))
+
+
+def reduce_work(seg, comp: int) -> tuple[int, int]:
+    """(bytes, operations) of one segmented sum with a prior: the listed
+    edges' rows and their index (the permutation, or the CSR offsets of a
+    contiguous kind) read once, the prior read and the sums written."""
+    n, v = seg.var.shape[0], seg.n_var
+    index = 4 * n if seg.perm is not None else 4 * (v + 1)
+    return 4 * comp * n + index + 2 * 4 * comp * v, comp * (n + v)
+
+
+def time_reduce_sides(state, graph, n_real: int, card: str) -> float:
+    """H3 per variable kind on the state's message rows: the kernel, its
+    bound, and the one library call that computes the same function
+    (``torch.index_add`` of the rows into the prior by the edges' variable
+    ids); prints a line per side and returns the library's time for both
+    sides (ms)."""
+    import torch
+
+    from gbp_poplar_tpu_torch.ops import _cuda, reduce_kernel
+
+    lib_total = 0.0
+    for label, rows, seg, prior, ids in (
+            ("cameras", state.pk[54:81], graph.cam_seg, state.cam_prior,
+             graph.cam_idx[:n_real]),
+            ("landmarks", state.pk[81:90], graph.lmk_seg, state.lmk_prior,
+             graph.lmk_idx[:n_real])):
+        ms = cuda_ms(lambda: reduce_kernel.segment_sum(rows, seg, prior),
+                     TIMED_SWEEPS)
+        lib = cuda_ms(lambda: torch.index_add(prior, 1, ids, rows[:, :n_real]),
+                      TIMED_SWEEPS)
+        lib_total += lib
+        b, by = least_ms(*reduce_work(seg, rows.shape[0]))
+        if seg.plan is not None:
+            smem = _cuda.library().gbp_reduce_chunks_smem(seg.plan.chunk)
+            how = (f"permuted segments, two passes over {seg.plan.n_chunks}"
+                   f" chunks of {seg.plan.chunk} edges, {seg.plan.n_runs} "
+                   f"runs ({smem} B of shared memory per pass-1 block)")
+        else:
+            how = "contiguous segments, one pass"
+        print(f"[time] reduce {label}: kernel {ms:.4f} ms, library "
+              f"index_add {lib:.4f} ms; bound {b:.4f} ms by {by} "
+              f"({b / ms:.0%} of it reached) at {n_real} edges, "
+              f"{seg.n_var} variables, {how} ({card})")
+    return lib_total
 
 
 def smi_line() -> str:
@@ -476,6 +594,9 @@ def main() -> int:
         for line in f:
             if "Compiling entry" in line or "spill" in line or "Used" in line:
                 print("[build] " + line.strip())
+    warps, stages, smem = _cuda.sweep_config()
+    print(f"[build] H1 launch: one block per SM of {warps} warps, {stages} "
+          f"stages of 32 edges per warp, {smem} B of shared memory per block")
 
     # ---- 3. the fused path's kernels against their plain versions ----
     cfg = GBPConfig(accel_every=0, coarse_groups=0)
@@ -634,9 +755,31 @@ def main() -> int:
                 st_r, graph_l, dataclasses.replace(cfg, kernels="reference")),
                 5)),
     }
+    # the yardsticks: each kernel's bound at these inputs and, where one
+    # PyTorch call computes the same function, that call's time (H3:
+    # torch.index_add of the edges' rows into the prior by variable id)
+    cam_w = reduce_work(graph_l.cam_seg, 27)
+    lmk_w = reduce_work(graph_l.lmk_seg, 9)
+    n_real = graph_l.cam_seg.var.shape[0]
+    yard = {
+        "sweep": (*least_ms(sweep_bytes(graph_l, False), count_ops(
+            lambda: sweep_kernel.sweep(st_r, graph_l, ct, lt, cfg,
+                                       reference=True))), None),
+        "table": (*least_ms(4 * 63 * graph_l.n_keyframes
+                         + 4 * 25 * graph_l.n_points, count_ops(
+            lambda: (table_kernel.build_table(state_l.cam_bel, 6,
+                                              reference=True),
+                     table_kernel.build_table(state_l.lmk_bel, 3,
+                                              reference=True)))), None),
+        "reduce": (*least_ms(cam_w[0] + lmk_w[0], cam_w[1] + lmk_w[1]),
+                   time_reduce_sides(st_k, graph_l, n_real, card)),
+    }
     for k, (ms, plain) in times.items():
+        b, by, lib = yard[k]
         print(f"[time] {k}: kernel {ms:.4f} ms, plain PyTorch {plain:.4f} ms "
-              f"per sweep at {e_l} padded edges ({card})")
+              f"per sweep at {e_l} padded edges; bound {b:.4f} ms by {by} "
+              f"({b / ms:.0%} of it reached); one library call "
+              f"{'none' if lib is None else f'{lib:.4f} ms'} ({card})")
     del st_k, st_r, ct, lt, state_l
 
     # ---- 4. the fused main path at the Ladybug shape ----
@@ -768,6 +911,7 @@ def main() -> int:
                    for f in ("pk", "damping_count", "robust"))
     print(f"[H4] Venice: H4 and H1 bit-identical on the same state: "
           f"{h4_vs_h1}")
+    check(h4_vs_h1, "H4 and H1 differ on the Venice state")
     del s4, s1
 
     # ---- 6. the unfused main path at the Venice shape ----
@@ -853,11 +997,34 @@ def main() -> int:
             reduce_kernel.gather(s.cam_bel, graph_v.cam_idx, reference=True),
             reduce_kernel.gather(s.lmk_bel, graph_v.lmk_idx, reference=True)),
                 TIMED_SWEEPS))
+    gather_bytes = 4 * (27 * graph_v.n_keyframes + 9 * graph_v.n_points
+                        + 2 * e_v + 36 * e_v)
+    # H5's plain version is the library call that computes its function
+    yard["sweep_planes"] = (*least_ms(sweep_bytes(graph_v, True), count_ops(
+        lambda: sweep_kernel.sweep_planes(st_r, graph_v, bc, bl, cfg_u,
+                                          reference=True))), None)
+    yard["gather"] = (*least_ms(gather_bytes, 0), times["gather"][1])
     for k in ("sweep_planes", "gather"):
+        b, by, lib = yard[k]
         print(f"[time] {k}: kernel {times[k][0]:.4f} ms, plain PyTorch "
-              f"{times[k][1]:.4f} ms per sweep at {e_v} padded edges "
-              f"({card})")
-    del st_k, st_r, bc, bl
+              f"{times[k][1]:.4f} ms per sweep at {e_v} padded edges; bound "
+              f"{b:.4f} ms by {by} ({b / times[k][0]:.0%} of it reached); "
+              f"one library call "
+              f"{'none' if lib is None else f'{lib:.4f} ms'} ({card})")
+    print(f"[time] gather library: index_select {times['gather'][1]:.4f} ms "
+          f"for both kinds at {e_v} padded edges ({card})")
+    # H1 on the same Venice state (the fused pipeline's sweep), and H3 per
+    # side with the cameras shuffled
+    ct = table_kernel.build_table(s.cam_bel, 6)
+    lt = table_kernel.build_table(s.lmk_bel, 3)
+    h1_v = cuda_ms(lambda: sweep_kernel.sweep(st_k, graph_v, ct, lt, cfg_u),
+                   TIMED_SWEEPS)
+    b, by = least_ms(sweep_bytes(graph_v, False), 0)
+    print(f"[time] sweep at the Venice shape: kernel {h1_v:.4f} ms; bound "
+          f"{b:.4f} ms by {by} ({b / h1_v:.0%} of it reached) at {e_v} "
+          f"padded edges ({card})")
+    time_reduce_sides(st_k, graph_v, graph_v.cam_seg.var.shape[0], card)
+    del st_k, st_r, bc, bl, ct, lt
 
     n_acc = 2 * cfg_u.accel_every
     for label, fused in (("unfused", False), ("fused", True)):
@@ -923,7 +1090,8 @@ def main() -> int:
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches[k], "max_abs_err": err_k,
-         "ms": times[k][0], "plain_ms": times[k][1]}
+         "ms": times[k][0], "plain_ms": times[k][1], "bound_ms": yard[k][0],
+         "bound_by": yard[k][1], "library_ms": yard[k][2]}
         for k, (src, rep, err_k) in replaces.items()]}))
     print(smi_line())
     print(json.dumps({"ok": True, "device": {

@@ -53,10 +53,11 @@ class GBPConfig:
     # --- fixed-point acceleration and coarse correction ---
     # Every accel_every anneal-free sweeps the belief means are extrapolated
     # along their chunk-averaged displacement (core/gbp._accel_step); <= 0
-    # disables. The coarse corrector is not ported yet (ROADMAP.md, A6):
-    # run_gbp raises NotImplementedError for coarse_groups > 0. The
-    # defaults stay those of the JAX package so that one config means the
-    # same solve in both packages.
+    # disables. With coarse_groups > 0 each live accelerator step is
+    # followed by a rigid correction of that many keyframe groups
+    # (core/gbp._coarse_step, core/coarse.py); like the JAX package, it
+    # never runs with accel_every <= 0. The defaults stay those of the JAX
+    # package so that one config means the same solve in both packages.
     accel_every: int = 50
     accel_start: int = 150
     accel_max_rate: float = 0.98

@@ -76,17 +76,86 @@ GRAPH_FIELDS = ("cam_idx", "lmk_idx", "meas", "meas_var", "k", "intr",
                 "cam_scaling", "lmk_scaling", "first_kf", "first_uv")
 
 
+# The chunk plan of a permuted segmented sum (ops/reduce_kernel.py, H3's
+# two-pass sum): the listed edges cut into chunks of PLAN_CHUNK edges (two
+# blocks of the kernel, 84,000 B of shared memory each, share an SM), each
+# chunk's edges sorted by variable into runs; pass 1 writes one partial
+# sum per run, so the partials do not grow with the number of variables.
+PLAN_CHUNK = 8192
+
+
+@dataclasses.dataclass
+class ChunkPlan:
+    """The listed edges cut into chunks of ``chunk`` consecutive edge ids.
+    Inside chunk k (edges k*chunk ...), ``order[k*chunk:(k+1)*chunk]``
+    lists the chunk-local offsets of its edges sorted stably by variable:
+    one run per variable present, its edges in ascending order. The runs
+    are numbered by (chunk, variable): chunk k's are ``chunk_runs[k] ...
+    chunk_runs[k+1] - 1``, run r starts at position ``run_start[r]`` of
+    its chunk's slice of ``order`` and ends where the next run of the
+    chunk starts (or at the chunk's end). Variable v's runs, in ascending
+    chunk order, are ``var_runs[var_ptr[v]:var_ptr[v+1]]``."""
+
+    chunk: int
+    order: torch.Tensor               # [n] int16 chunk-local offsets
+    chunk_runs: torch.Tensor          # [n_chunks + 1] int32
+    run_start: torch.Tensor           # [R] int32
+    var_ptr: torch.Tensor             # [V + 1] int32
+    var_runs: torch.Tensor            # [R] int32
+
+    @property
+    def n_chunks(self) -> int:
+        return self.chunk_runs.shape[0] - 1
+
+    @property
+    def n_runs(self) -> int:
+        return self.run_start.shape[0]
+
+
+def chunk_plan(ids: np.ndarray, n_var: int, device) -> ChunkPlan:
+    """The chunk plan of edges whose variables are ``ids`` (in edge
+    order)."""
+    chunk = PLAN_CHUNK
+    ids = np.asarray(ids, np.int64)
+    n = len(ids)
+    n_chunks = -(-n // chunk)
+    cid = np.arange(n, dtype=np.int64) // chunk
+    key = cid * n_var + ids
+    srt = np.argsort(key, kind="stable")
+    order = srt % chunk
+    skey = key[srt]
+    first = np.ones(n, bool)
+    first[1:] = skey[1:] != skey[:-1]
+    starts = np.flatnonzero(first)                 # global sorted positions
+    run_chunk = cid[srt[starts]]
+    run_var = ids[srt[starts]]
+    chunk_runs = np.searchsorted(run_chunk, np.arange(n_chunks + 1))
+    var_runs = np.argsort(run_var, kind="stable")  # runs by (var, chunk)
+    var_ptr = np.searchsorted(run_var[var_runs], np.arange(n_var + 1))
+
+    def i32(x):
+        return torch.tensor(np.asarray(x).astype(np.int32), device=device)
+
+    return ChunkPlan(
+        chunk=chunk,
+        order=torch.tensor(order.astype(np.int16), device=device),
+        chunk_runs=i32(chunk_runs), run_start=i32(starts - run_chunk * chunk),
+        var_ptr=i32(var_ptr), var_runs=i32(var_runs))
+
+
 @dataclasses.dataclass
 class Segments:
     """CSR description of a per-variable segmented sum over edges.
 
     Variable v's edges are ``perm[ptr[v]:ptr[v+1]]`` (or the contiguous
     range ``ptr[v]:ptr[v+1]`` when ``perm`` is None), in ascending edge
-    order, so every sum runs in one fixed order."""
+    order, so every sum runs in one fixed order. A permuted kind also
+    carries its chunk plan."""
 
     ptr: torch.Tensor                 # [V + 1] int32
     perm: torch.Tensor | None         # [n] int32 edge ids, or None (0..n-1)
     var: torch.Tensor                 # [n] int32 variable of each listed edge
+    plan: ChunkPlan | None = None
 
     @property
     def n_var(self) -> int:
@@ -101,8 +170,9 @@ def build_segments(var_idx: np.ndarray, n_var: int, n_real: int,
     ids = np.asarray(var_idx[:n_real]).astype(np.int64)
     counts = np.bincount(ids, minlength=n_var)
     ptr = np.concatenate([[0], np.cumsum(counts)])
-    perm = None
+    perm = plan = None
     if not np.all(ids[1:] >= ids[:-1]):
+        plan = chunk_plan(ids, n_var, device)
         perm = np.argsort(ids, kind="stable")
         ids = ids[perm]
 
@@ -110,7 +180,7 @@ def build_segments(var_idx: np.ndarray, n_var: int, n_real: int,
         return torch.tensor(x.astype(np.int32), device=device)
 
     return Segments(ptr=i32(ptr), perm=None if perm is None else i32(perm),
-                    var=i32(ids))
+                    var=i32(ids), plan=plan)
 
 
 @dataclasses.dataclass

@@ -215,7 +215,13 @@ __device__ __forceinline__ void linearise(const SweepParams& p,
   out.z = y_cf[2];
 }
 
-// Accessor for one edge's column of the packed [109, E] state.
+// Accessors for one edge's column of the packed [109, E] state. edge_math
+// reads a row's old value with ld(row) and writes its new one with
+// st(row, x); st_keep marks the factor rows whose new values the message
+// phase uses again, and held(row, x) gives such a value back.
+//
+// EdgeColumn (H4): the column in global memory, read and written in
+// place; held() returns the value the caller still holds in a register.
 struct EdgeColumn {
   float* base;                // &pk[0][e]
   long long stride;           // E
@@ -224,6 +230,36 @@ struct EdgeColumn {
   }
   __device__ __forceinline__ void st(int row, float x) const {
     base[row * stride] = x;
+  }
+  __device__ __forceinline__ void st_keep(int row, float x) const {
+    base[row * stride] = x;
+  }
+  __device__ __forceinline__ float held(int, float x) const { return x; }
+};
+
+// TileColumn (H1): the column staged in a tile [rows][T] (shared memory on
+// the card). Old values come from the tile; new values go straight to the
+// global state; st_keep also writes the new value over the old one in the
+// tile, and held() reads it back from there, so the 54 factor values need
+// no registers between the factor update and the messages. Every row's
+// old value is read before st_keep overwrites it (edge_math's order).
+struct TileColumn {
+  float* tile;                // &tile[0][t]
+  int tile_stride;            // T
+  float* base;                // &pk[0][e]
+  long long stride;           // E
+  __device__ __forceinline__ float ld(int row) const {
+    return tile[row * tile_stride];
+  }
+  __device__ __forceinline__ void st(int row, float x) const {
+    base[row * stride] = x;
+  }
+  __device__ __forceinline__ void st_keep(int row, float x) const {
+    tile[row * tile_stride] = x;
+    base[row * stride] = x;
+  }
+  __device__ __forceinline__ float held(int row, float) const {
+    return tile[row * tile_stride];
   }
 };
 
@@ -234,8 +270,9 @@ struct EdgeColumn {
 // solves its means per edge and passes true, as the JAX edge_math without
 // premu tests finiteness of the mean step only. Every old value of a row is
 // read before the row is written; each thread touches only its own edge.
+template <class Col>
 __device__ __forceinline__ void edge_math(const SweepParams& p,
-                                          const EdgeColumn& pk, int& dc,
+                                          const Col& pk, int& dc,
                                           uint8_t& rb, bool active,
                                           const float bc[CAM_COMP],
                                           const float bl[LMK_COMP],
@@ -300,22 +337,21 @@ __device__ __forceinline__ void edge_math(const SweepParams& p,
   }
 
   // adopt the new potentials where relinearised
-  float f_eta_c[6], f_eta_l[3], f_cc[6][6], f_cl[6][3], f_ll[3][3];
-  float f_lam_cc[21], f_lam_ll[6];
+  float f_eta_c[6], f_eta_l[3], f_cl[6][3], f_lam_cc[21], f_lam_ll[6];
 #pragma unroll
   for (int i = 0; i < 6; ++i) {
     f_eta_c[i] = relin ? pot.eta_c[i] : pk.ld(R_F_ETA_C + i);
-    pk.st(R_F_ETA_C + i, f_eta_c[i]);
+    pk.st_keep(R_F_ETA_C + i, f_eta_c[i]);
   }
 #pragma unroll
   for (int i = 0; i < 3; ++i) {
     f_eta_l[i] = relin ? pot.eta_l[i] : pk.ld(R_F_ETA_L + i);
-    pk.st(R_F_ETA_L + i, f_eta_l[i]);
+    pk.st_keep(R_F_ETA_L + i, f_eta_l[i]);
   }
 #pragma unroll
   for (int s = 0; s < 21; ++s) {
     f_lam_cc[s] = relin ? pot.lam_cc[s] : pk.ld(R_F_LAM_CC + s);
-    pk.st(R_F_LAM_CC + s, f_lam_cc[s]);
+    pk.st_keep(R_F_LAM_CC + s, f_lam_cc[s]);
   }
 #pragma unroll
   for (int i = 0; i < 6; ++i)
@@ -323,15 +359,28 @@ __device__ __forceinline__ void edge_math(const SweepParams& p,
     for (int j = 0; j < 3; ++j) {
       const int s = i * 3 + j;
       f_cl[i][j] = relin ? pot.lam_cl[s] : pk.ld(R_F_LAM_CL + s);
-      pk.st(R_F_LAM_CL + s, f_cl[i][j]);
+      pk.st_keep(R_F_LAM_CL + s, f_cl[i][j]);
     }
 #pragma unroll
   for (int s = 0; s < 6; ++s) {
     f_lam_ll[s] = relin ? pot.lam_ll[s] : pk.ld(R_F_LAM_LL + s);
-    pk.st(R_F_LAM_LL + s, f_lam_ll[s]);
+    pk.st_keep(R_F_LAM_LL + s, f_lam_ll[s]);
   }
-  unpack_sym<6>(f_lam_cc, f_cc);
-  unpack_sym<3>(f_lam_ll, f_ll);
+  // the new factor values, from here on through the accessor: the
+  // registers above (EdgeColumn) or the tile (TileColumn)
+  auto fec = [&](int i) { return pk.held(R_F_ETA_C + i, f_eta_c[i]); };
+  auto fel = [&](int i) { return pk.held(R_F_ETA_L + i, f_eta_l[i]); };
+  auto fcc = [&](int i, int j) {
+    const int s = sym_slot(i, j);
+    return pk.held(R_F_LAM_CC + s, f_lam_cc[s]);
+  };
+  auto fcl = [&](int i, int j) {
+    return pk.held(R_F_LAM_CL + i * 3 + j, f_cl[i][j]);
+  };
+  auto fll = [&](int i, int j) {
+    const int s = sym_slot(i, j);
+    return pk.held(R_F_LAM_LL + s, f_lam_ll[s]);
+  };
 #pragma unroll
   for (int i = 0; i < 9; ++i) {
     pk.st(R_LIN_MU + i, relin ? mu[i] : lin_mu[i]);
@@ -363,14 +412,14 @@ __device__ __forceinline__ void edge_math(const SweepParams& p,
 #pragma unroll
       for (int j = 0; j <= i; ++j) {
         const int s = sym_slot(i, j);
-        cav[i][j] = f_lam_ll[s] + bl[3 + s] - pk.ld(R_MSG_L_LAM + s);
+        cav[i][j] = fll(i, j) + bl[3 + s] - pk.ld(R_MSG_L_LAM + s);
         cav[j][i] = cav[i][j];
       }
     if (jitter) add_rel_jitter<3>(cav, p.jit3);
     ok_ll = inv_sym3_posdef(cav, inv_ll);
 #pragma unroll
     for (int i = 0; i < 3; ++i)
-      eta_l_cav[i] = f_eta_l[i] + bl[i] - pk.ld(R_MSG_L_ETA + i);
+      eta_l_cav[i] = fel(i) + bl[i] - pk.ld(R_MSG_L_ETA + i);
   }
 
   // --- to landmark: marginalise the keyframe out (6x6 Cholesky) ---
@@ -381,7 +430,7 @@ __device__ __forceinline__ void edge_math(const SweepParams& p,
 #pragma unroll
       for (int j = 0; j <= i; ++j) {
         const int s = sym_slot(i, j);
-        cav[i][j] = f_lam_cc[s] + bc[6 + s] - pk.ld(R_MSG_C_LAM + s);
+        cav[i][j] = fcc(i, j) + bc[6 + s] - pk.ld(R_MSG_C_LAM + s);
         cav[j][i] = cav[i][j];
       }
     if (jitter) add_rel_jitter<6>(cav, p.jit6);
@@ -391,22 +440,22 @@ __device__ __forceinline__ void edge_math(const SweepParams& p,
     float eta_c_cav[6], y_sol[6];
 #pragma unroll
     for (int i = 0; i < 6; ++i)
-      eta_c_cav[i] = f_eta_c[i] + bc[i] - pk.ld(R_MSG_C_ETA + i);
+      eta_c_cav[i] = fec(i) + bc[i] - pk.ld(R_MSG_C_ETA + i);
     chol_solve<6>(l, eta_c_cav, y_sol);
     float x_cols[3][6];
 #pragma unroll
     for (int a = 0; a < 3; ++a) {
       float col[6];
 #pragma unroll
-      for (int i = 0; i < 6; ++i) col[i] = f_cl[i][a];
+      for (int i = 0; i < 6; ++i) col[i] = fcl(i, a);
       chol_solve<6>(l, col, x_cols[a]);
     }
 #pragma unroll
     for (int a = 0; a < 3; ++a) {
-      float acc = f_cl[0][a] * y_sol[0];
+      float acc = fcl(0, a) * y_sol[0];
 #pragma unroll
-      for (int i = 1; i < 6; ++i) acc = acc + f_cl[i][a] * y_sol[i];
-      const float m = f_eta_l[a] - acc;
+      for (int i = 1; i < 6; ++i) acc = acc + fcl(i, a) * y_sol[i];
+      const float m = fel(a) - acc;
       const float old = pk.ld(R_MSG_L_ETA + a);
       float out = keep * m + damping * old;
       out = ok_cc ? out : old;
@@ -417,10 +466,10 @@ __device__ __forceinline__ void edge_math(const SweepParams& p,
 #pragma unroll
       for (int b = 0; b <= a; ++b) {
         const int s = sym_slot(a, b);
-        float acc = f_cl[0][a] * x_cols[b][0];
+        float acc = fcl(0, a) * x_cols[b][0];
 #pragma unroll
-        for (int i = 1; i < 6; ++i) acc = acc + f_cl[i][a] * x_cols[b][i];
-        const float m = f_ll[a][b] - acc;
+        for (int i = 1; i < 6; ++i) acc = acc + fcl(i, a) * x_cols[b][i];
+        const float m = fll(a, b) - acc;
         const float old = pk.ld(R_MSG_L_LAM + s);
         float out = lambda_damping ? keep * m + damping * old : m;
         out = ok_cc ? out : old;
@@ -431,10 +480,17 @@ __device__ __forceinline__ void edge_math(const SweepParams& p,
   // --- to keyframe, part 2: the camera messages ---
   {
     float w_cl[6][3];
-    matmul<6, 3, 3>(f_cl, inv_ll, w_cl);
+    {
+      float f[6][3];
+#pragma unroll
+      for (int i = 0; i < 6; ++i)
+#pragma unroll
+        for (int j = 0; j < 3; ++j) f[i][j] = fcl(i, j);
+      matmul<6, 3, 3>(f, inv_ll, w_cl);
+    }
 #pragma unroll
     for (int i = 0; i < 6; ++i) {
-      const float m = f_eta_c[i] - (w_cl[i][0] * eta_l_cav[0]
+      const float m = fec(i) - (w_cl[i][0] * eta_l_cav[0]
                                     + w_cl[i][1] * eta_l_cav[1]
                                     + w_cl[i][2] * eta_l_cav[2]);
       const float old = pk.ld(R_MSG_C_ETA + i);
@@ -447,9 +503,9 @@ __device__ __forceinline__ void edge_math(const SweepParams& p,
 #pragma unroll
       for (int j = 0; j <= i; ++j) {
         const int s = sym_slot(i, j);
-        const float m = f_cc[i][j] - (w_cl[i][0] * f_cl[j][0]
-                                      + w_cl[i][1] * f_cl[j][1]
-                                      + w_cl[i][2] * f_cl[j][2]);
+        const float m = fcc(i, j) - (w_cl[i][0] * fcl(j, 0)
+                                     + w_cl[i][1] * fcl(j, 1)
+                                     + w_cl[i][2] * fcl(j, 2));
         const float old = pk.ld(R_MSG_C_LAM + s);
         float out = lambda_damping ? keep * m + damping * old : m;
         out = ok_ll ? out : old;
@@ -460,8 +516,9 @@ __device__ __forceinline__ void edge_math(const SweepParams& p,
 
 // One edge of the fused sweep (H1): ``bc`` / ``bl`` are the edge's rows of
 // the belief tables, which carry the means solved once per variable.
+template <class Col>
 __device__ __forceinline__ void edge_math_tables(
-    const SweepParams& p, const EdgeColumn& pk, int& dc, uint8_t& rb,
+    const SweepParams& p, const Col& pk, int& dc, uint8_t& rb,
     bool active, const float bc[CAM_WIDTH], const float bl[LMK_WIDTH],
     float meas_u, float meas_v, float meas_var, const float intr[3]) {
   float mu[9];

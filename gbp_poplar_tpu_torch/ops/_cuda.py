@@ -105,13 +105,19 @@ def library() -> ctypes.CDLL:
     lib = ctypes.CDLL(so)
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.gbp_table_launch.argtypes = [i, p, i, p, i, p]
-    lib.gbp_reduce_launch.argtypes = [p, ll, i, p, p, i, p, p, i, p]
+    lib.gbp_reduce_launch.argtypes = [p, ll, i, p, i, p, p, i, p]
     lib.gbp_sweep_launch.argtypes = [p] * 12 + [i, p]
     lib.gbp_sweep_planes_launch.argtypes = [p] * 10 + [i, p]
+    lib.gbp_reduce_chunks_launch.argtypes = [p, ll, i, p, p, p, p, p, i, i,
+                                             i, i, i, p, p, p, p]
     lib.gbp_gather_launch.argtypes = [p, ll, i, p, p, ll, p]
+    lib.gbp_sweep_config.argtypes = [p, p, p]
+    lib.gbp_sweep_config.restype = None
+    lib.gbp_reduce_chunks_smem.argtypes = [i]
+    lib.gbp_reduce_chunks_smem.restype = i
     for fn in (lib.gbp_table_launch, lib.gbp_reduce_launch,
-               lib.gbp_sweep_launch, lib.gbp_sweep_planes_launch,
-               lib.gbp_gather_launch):
+               lib.gbp_reduce_chunks_launch, lib.gbp_sweep_launch,
+               lib.gbp_sweep_planes_launch, lib.gbp_gather_launch):
         fn.restype = i
     _lib = lib
     return lib
@@ -130,3 +136,11 @@ def stream_ptr(t) -> int:
 
 def ptr(t) -> int | None:
     return None if t is None else t.data_ptr()
+
+
+def sweep_config() -> tuple[int, int, int]:
+    """H1's launch shape: (warps per block, stages per warp, dynamic
+    shared memory per block in bytes)."""
+    vals = [ctypes.c_int() for _ in range(3)]
+    library().gbp_sweep_config(*(ctypes.byref(v) for v in vals))
+    return tuple(v.value for v in vals)

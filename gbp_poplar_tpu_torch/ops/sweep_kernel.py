@@ -12,19 +12,26 @@ means, and write the 12 packed f32 fields, the damping counter and the
 robust flag back. The per-variable message sums that the TPU kernel
 accumulated in its epilogue are left to ops/reduce_kernel.py.
 
-Kernel (csrc/sweep.cu, with the edge math in csrc/edge_math.cuh and the
-small-matrix algebra in csrc/planes.cuh): one thread per edge. Bound on
-the H100: bytes. Each edge reads and writes its 109 packed rows (872 B),
-the counter and flag, and reads 6 more constant rows and two table rows:
-about 1 KB per edge per sweep, against roughly 2,000 flops. Design: the
-plane layout [row, E] makes every packed-row access coalesced across a
-warp; the belief rows come by direct indexed 16-byte loads from the small
-tables (consecutive edges share a landmark and a handful of cameras, so
-they hit in L1/L2); the state is updated in place, which is safe because
-each thread touches only its own edge. No windows, one-hot gathers or
-brick layout: those answered TPU limits the H100 does not have. The
-``edge_math`` body keeps about 300 values live per edge; the registers and
-spills that costs are recorded by the build (ops/_cuda.py).
+Kernel (csrc/sweep.cu, with the edge math in csrc/edge_math.cuh, the
+small-matrix algebra in csrc/planes.cuh and the bulk copies in
+csrc/bulk.cuh). Bound on the H100: bytes. Each edge reads and writes its
+109 packed rows (872 B), the counter and flag, and reads 7 more words and
+two table rows: 906 B per edge plus the tables once, against about 1,900
+float operations. Design: persistent blocks, one per SM, of 7 warps; each
+warp walks over tiles of 32 edges and keeps its next tile in flight in a
+ring of two shared-memory stages, filled by 1-D bulk copies (one per row)
+whose bytes an mbarrier counts. The edge math reads its column from the
+stage, writes the new values straight to the global state (coalesced per
+row), and parks the new factor values in the stage rather than in
+registers. Tiles that are partial or not 16-byte aligned (an edge count
+that is not a multiple of 4) are copied lane by lane in the kernel. The
+plane layout [row, E] keeps every access coalesced; the belief rows come
+by indexed 16-byte loads from the small tables (consecutive edges share a
+landmark and a handful of cameras, so they hit in L1/L2). No windows,
+one-hot gathers or brick layout: those answered TPU limits the H100 does
+not have. The arithmetic is edge_math's in both kernels, so H1 and H4
+agree to the bit; registers and spills are recorded by the build
+(ops/_cuda.py).
 """
 
 from __future__ import annotations

@@ -120,3 +120,61 @@ def test_solve_ba_default_config_on_card(cuda_device):
     _, _, e_cpu = solve_ba(prob, n_iters=200, device="cpu")
     assert np.isfinite(e_gpu).all() and e_gpu[-1] < e_gpu[0]
     np.testing.assert_allclose(e_gpu[-1], e_cpu[-1], rtol=0.01, atol=0.01)
+
+
+@pytest.mark.cuda
+def test_sweep_odd_edge_count_on_card(cuda_device):
+    """H1 with ``edge_pad_multiple=1`` and an odd edge count (rows not
+    16-byte aligned, so each lane copies its own column into the stage;
+    the last tile partial): bit-identical to its plain version, and to H4
+    on the same state."""
+    prob = balio.synthetic_problem_large(n_keyframes=20, n_points=601,
+                                         obs_per_lmk=5, seed=0)
+    cfg = GBPConfig(accel_every=0, edge_pad_multiple=1)
+    g = fg.build_graph(prob, cfg, cuda_device)
+    assert g.n_edges % 2 == 1
+    s = gbp.initialise(fg.init_state(prob, cfg, cuda_device), g, cfg)
+    s, _ = gbp.run_gbp(s, g, cfg, 17, with_diagnostics=False)
+    ct = table_kernel.build_table(s.cam_bel, 6)
+    lt = table_kernel.build_table(s.lmk_bel, 3)
+    sk, sr, s4 = s.clone(), s.clone(), s.clone()
+    sweep_kernel.sweep(sk, g, ct, lt, cfg)
+    sweep_kernel.sweep(sr, g, ct, lt, cfg, reference=True)
+    sweep_kernel.sweep_planes(s4, g, reduce_kernel.gather(s.cam_bel, g.cam_idx),
+                              reduce_kernel.gather(s.lmk_bel, g.lmk_idx), cfg)
+    for other in (sr, s4):
+        for f in ("pk", "damping_count", "robust"):
+            a, b = getattr(sk, f), getattr(other, f)
+            assert bool(((a == b) | (a != a) & (b != b)).all()), f
+
+
+@pytest.mark.cuda
+def test_chunked_reduce_on_shuffled_cameras_on_card(cuda_device):
+    """H3's two-pass sum over the chunk plan of camera-shuffled segments
+    (several chunks, a ragged last one) and of the coarse group segments:
+    within 1e-5 of the sum of |terms| of the plain version, and
+    bit-identical on rerun."""
+    from gbp_poplar_tpu_torch.core import coarse
+
+    prob = balio.synthetic_problem_large(n_keyframes=300, n_points=20001,
+                                         obs_per_lmk=5, seed=1)
+    perm = np.random.default_rng(1).permutation(prob.n_keyframes)
+    prob.cam_idx = perm[prob.cam_idx].astype(prob.cam_idx.dtype)
+    g = fg.build_graph(prob, GBPConfig(), cuda_device)
+    assert g.cam_seg.plan is not None and g.cam_seg.plan.n_chunks > 1
+    rng = np.random.default_rng(2)
+    rows = torch.tensor(rng.normal(0, 1, (27, g.n_edges)).astype(np.float32),
+                        device=cuda_device)
+    groups = coarse.group_segments(g, 16)
+    for seg in (g.cam_seg, groups.edge_cam, groups.edge_pair, groups.lmk):
+        assert seg.plan is not None
+        n = seg.var.shape[0]
+        planes = rows[:, :n]
+        prior = torch.tensor(rng.normal(0, 1, (27, seg.n_var))
+                             .astype(np.float32), device=cuda_device)
+        k = reduce_kernel.segment_sum(planes, seg, prior)
+        r = reduce_kernel.segment_sum(planes, seg, prior, reference=True)
+        scale = reduce_kernel.segment_sum(planes.abs(), seg, prior.abs(),
+                                          reference=True)
+        assert bool(((k - r).abs() <= 1e-5 * scale).all())
+        assert torch.equal(k, reduce_kernel.segment_sum(planes, seg, prior))
