@@ -1024,6 +1024,13 @@ def main() -> int:
           f"{b:.4f} ms by {by} ({b / h1_v:.0%} of it reached) at {e_v} "
           f"padded edges ({card})")
     time_reduce_sides(st_k, graph_v, graph_v.cam_seg.var.shape[0], card)
+    # H3 against its plain version at this shape: the cameras' shuffled
+    # segments go by the chunk plan, the landmarks' by the one-pass kernel
+    h3_err = max(h3_err, reduce_case(
+        "Venice state cam (shuffled)", s.pk[54:81], graph_v.cam_seg,
+        s.cam_prior))
+    h3_err = max(h3_err, reduce_case(
+        "Venice state lmk", s.pk[81:90], graph_v.lmk_seg, s.lmk_prior))
     del st_k, st_r, bc, bl, ct, lt
 
     n_acc = 2 * cfg_u.accel_every

@@ -3,7 +3,9 @@
 // bulk copy needs no tensor map (and so no driver API): one thread names
 // the source, the destination, the size and the barrier. Addresses and
 // sizes must be multiples of 16 bytes; callers check and copy element by
-// element otherwise.
+// element otherwise. Also the launchers' per-device set-up: the SM count
+// and the dynamic shared-memory opt-in of a kernel that stages through
+// shared memory.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -76,6 +78,34 @@ __device__ __forceinline__ void bulk_load(void* dst, const void* src,
       "[%0], [%1], %2, [%3];" ::"r"(smem_addr(dst)),
       "l"(src), "r"(bytes), "r"(smem_addr(bar))
       : "memory");
+}
+
+constexpr int MAX_DEVICES = 64;
+
+// the current device and its SM count, queried once per device
+inline cudaError_t device_sms(int* dev, int* sms) {
+  static int count[MAX_DEVICES] = {0};
+  cudaError_t err = cudaGetDevice(dev);
+  if (err != cudaSuccess) return err;
+  if (*dev < 0 || *dev >= MAX_DEVICES) return cudaErrorInvalidDevice;
+  if (count[*dev] == 0) {
+    err = cudaDeviceGetAttribute(&count[*dev],
+                                 cudaDevAttrMultiProcessorCount, *dev);
+    if (err != cudaSuccess) return err;
+  }
+  *sms = count[*dev];
+  return cudaSuccess;
+}
+
+// let ``kernel`` take ``bytes`` of dynamic shared memory on device ``dev``;
+// ``set`` (one per kernel) holds the largest size already allowed there
+template <typename Kernel>
+cudaError_t smem_opt_in(Kernel kernel, int bytes, int dev, int* set) {
+  if (bytes <= set[dev]) return cudaSuccess;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err == cudaSuccess) set[dev] = bytes;
+  return err;
 }
 
 }  // namespace gbp

@@ -251,28 +251,14 @@ extern "C" int gbp_reduce_chunks_launch(
   if ((long long)comp * n_var <= 0) return 0;
   cudaStream_t s = (cudaStream_t)stream;
   if (n_chunks > 0) {
-    // the SM count and the shared-memory opt-in (raised to the largest
-    // block seen), once per device
-    static int sms[64] = {0}, smem_set[64] = {0};
-    int dev = 0;
-    cudaError_t err = cudaGetDevice(&dev);
-    if (err != cudaSuccess) return (int)err;
-    if (dev < 0 || dev >= 64) return (int)cudaErrorInvalidDevice;
-    if (sms[dev] == 0) {
-      err = cudaDeviceGetAttribute(&sms[dev], cudaDevAttrMultiProcessorCount,
-                                   dev);
-      if (err != cudaSuccess) return (int)err;
-    }
+    static int smem_set[gbp::MAX_DEVICES] = {0};
     const int smem = gbp::chunks_smem(chunk);
-    if (smem > smem_set[dev]) {
-      err = cudaFuncSetAttribute(gbp::reduce_chunks,
-                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                 smem);
-      if (err != cudaSuccess) return (int)err;
-      smem_set[dev] = smem;
-    }
-    const int rpb = gbp::rows_per_block(comp, n_chunks,
-                                        gbp::RC_PER_SM * sms[dev]);
+    int dev = 0, sms = 0;
+    cudaError_t err = gbp::device_sms(&dev, &sms);
+    if (err == cudaSuccess)
+      err = gbp::smem_opt_in(gbp::reduce_chunks, smem, dev, smem_set);
+    if (err != cudaSuccess) return (int)err;
+    const int rpb = gbp::rows_per_block(comp, n_chunks, gbp::RC_PER_SM * sms);
     const int groups = (comp + rpb - 1) / rpb;
     gbp::reduce_chunks<<<(unsigned)((long long)n_chunks * groups),
                          gbp::RC_THREADS, smem, s>>>(

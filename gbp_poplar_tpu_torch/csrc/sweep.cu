@@ -36,7 +36,10 @@
 // for one phase at a time and its parity is the tile's round.
 //
 // Budget: a stage is 119 rows x 32 x 4 B + 32 B = 15,264 B; 7 warps x 2
-// stages = 213,696 B of the 232,448 a block may have, so one block per SM;
+// stages = 213,696 B (213,808 B with the barriers) of the 232,448 a block
+// may have, so one block per SM; 8 warps x 2 stages (244,352 B) or 7 x 3
+// (320,712 B) do not fit, and fewer warps with more stages ran slower
+// (PERF.md);
 // 224 threads x 255 registers = 57,120 of the SM's 65,536, so the build's
 // register count (the [build] lines) does not limit the warps: shared
 // memory does. Tiles that are partial (the last one) or whose rows are
@@ -87,13 +90,8 @@ __device__ __forceinline__ void load_intr(const SweepParams& p,
   }
 }
 
-#ifndef H1_WARPS
-#define H1_WARPS 7            // warps per block, one block per SM
-#endif
-#ifndef H1_STAGES
-#define H1_STAGES 2           // stages in each warp's ring
-#endif
-
+constexpr int H1_WARPS = 7;   // warps per block, one block per SM
+constexpr int H1_STAGES = 2;  // stages in each warp's ring
 constexpr int H1_T = 32;      // edges per tile, one per lane
 
 // A stage: rows of H1_T 4-byte words (the packed rows, then the per-edge
@@ -259,22 +257,12 @@ extern "C" int gbp_sweep_launch(const gbp::SweepParams* params, float* pk,
                                 const float* lmk_tbl, int n_edges,
                                 void* stream) {
   if (n_edges <= 0) return 0;
-  // the SM count and the shared-memory opt-in, once per device
-  static int sms[64] = {0};
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
+  static int smem_set[gbp::MAX_DEVICES] = {0};
+  int dev = 0, sms = 0;
+  cudaError_t err = gbp::device_sms(&dev, &sms);
+  if (err == cudaSuccess)
+    err = gbp::smem_opt_in(gbp::sweep_kernel, gbp::H1_SMEM, dev, smem_set);
   if (err != cudaSuccess) return (int)err;
-  if (dev < 0 || dev >= 64) return (int)cudaErrorInvalidDevice;
-  if (sms[dev] == 0) {
-    err = cudaFuncSetAttribute(gbp::sweep_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               gbp::H1_SMEM);
-    if (err != cudaSuccess) return (int)err;
-    int n = 0;
-    err = cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
-    if (err != cudaSuccess) return (int)err;
-    sms[dev] = n;
-  }
   gbp::SweepArgs a;
   a.pk = pk;
   a.dc = dc;
@@ -297,9 +285,9 @@ extern "C" int gbp_sweep_launch(const gbp::SweepParams* params, float* pk,
                           | (has_intr ? (uintptr_t)intr : 0);
   a.bulk_ok = (bases % 16 == 0) && (n_edges % 4 == 0);
   const long long tiles = (n_edges + gbp::H1_T - 1) / gbp::H1_T;
-  const long long want = (tiles + H1_WARPS - 1) / H1_WARPS;
-  const int blocks = (int)(want < sms[dev] ? want : sms[dev]);
-  gbp::sweep_kernel<<<blocks, H1_WARPS * 32, gbp::H1_SMEM,
+  const long long want = (tiles + gbp::H1_WARPS - 1) / gbp::H1_WARPS;
+  const int blocks = (int)(want < sms ? want : sms);
+  gbp::sweep_kernel<<<blocks, gbp::H1_WARPS * 32, gbp::H1_SMEM,
                       (cudaStream_t)stream>>>(*params, a);
   return (int)cudaGetLastError();
 }
@@ -322,7 +310,7 @@ extern "C" int gbp_sweep_planes_launch(const gbp::SweepParams* params,
 // H1's launch shape, for the build report: warps per block, stages per
 // warp, dynamic shared memory per block (bytes).
 extern "C" void gbp_sweep_config(int* warps, int* stages, int* smem) {
-  *warps = H1_WARPS;
-  *stages = H1_STAGES;
+  *warps = gbp::H1_WARPS;
+  *stages = gbp::H1_STAGES;
   *smem = gbp::H1_SMEM;
 }

@@ -1,19 +1,13 @@
 #!/usr/bin/env python3
-"""Probe the port's two redesigned kernels on one CUDA card.
+"""Profile the two passes of H3's permuted-segment sum on one CUDA card.
 
-    python3 scripts/torch_kernel_probe.py h1   # H1 launch shapes
-    python3 scripts/torch_kernel_probe.py h3   # H3's passes, by profiler
+    python3 scripts/torch_kernel_probe.py
 
-h1: builds the kernel library once per (warps per block, stages per warp)
-of H1 (-DH1_WARPS, -DH1_STAGES; csrc/sweep.cu) and times one fused sweep
-of each at the Ladybug and Venice shapes (chip_smoke.py's, after
-initialise + 20 sweeps), each checked to the bit against the default
-build. Shared memory allows at most 7 warps x 2 stages.
-
-h3: for the camera side at both shapes (Venice with shuffled camera ids):
-the chunk plan (chunks, runs), the device time of each pass (pass 1
-``reduce_chunks``, pass 2 ``reduce_combine``) by torch.profiler, the
-whole sum by CUDA events beside its bound and ``torch.index_add``.
+For the camera side at chip_smoke.py's Ladybug and Venice shapes (Venice
+with shuffled camera ids): the chunk plan (chunks, runs), the device time
+of each pass (pass 1 ``reduce_chunks``, pass 2 ``reduce_combine``) by
+torch.profiler, the whole sum by CUDA events beside its bound and
+``torch.index_add``.
 
 Prints the card's name and power limit first; needs a CUDA card.
 """
@@ -28,12 +22,10 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
 
 import chip_smoke as cs  # noqa: E402
 
-H1_SHAPES = [(7, 2), (6, 2), (5, 2), (4, 3), (3, 4)]
 
-
-def _state(shape, shuffle, dev, cfg):
-    from gbp_poplar_tpu_torch.config import InitConfig
-    from gbp_poplar_tpu_torch.core import build_graph, gbp, init_state
+def _graph(shape, shuffle, dev):
+    from gbp_poplar_tpu_torch.config import GBPConfig, InitConfig
+    from gbp_poplar_tpu_torch.core import build_graph
     from gbp_poplar_tpu_torch.utils import balio, priors
 
     raw = balio.synthetic_problem_large(*shape)
@@ -41,67 +33,18 @@ def _state(shape, shuffle, dev, cfg):
         raw = cs.shuffle_cameras(raw)
     prob = priors.apply_init_noise(raw, InitConfig(lmk_noise=cs.LMK_NOISE,
                                                    seed=0))
-    g = build_graph(prob, cfg, dev)
-    return g, prob
-
-
-def probe_h1(dev) -> None:
-    import torch
-
-    from gbp_poplar_tpu_torch.config import GBPConfig
-    from gbp_poplar_tpu_torch.core import gbp, init_state
-    from gbp_poplar_tpu_torch.ops import _cuda, sweep_kernel, table_kernel
-
-    base = list(_cuda.NVCC_FLAGS)
-    libs = {}
-    for w, st in H1_SHAPES:
-        _cuda.NVCC_FLAGS = base + [f"-DH1_WARPS={w}", f"-DH1_STAGES={st}"]
-        _cuda._lib = None
-        libs[(w, st)] = _cuda.library()
-        lines = open(_cuda.ptxas_log).read().splitlines()
-        for i, ln in enumerate(lines):
-            if "Compiling entry" in ln and "sweep_kernel" in ln:
-                print(f"[h1] {w} warps x {st} stages: "
-                      f"{lines[i + 2].strip()}; {lines[i + 3].strip()}")
-    _cuda.NVCC_FLAGS = base
-    cfg = GBPConfig(accel_every=0, coarse_groups=0)
-    for label, shape, shuffle in (("Ladybug", cs.LADYBUG_SHAPE, False),
-                                  ("Venice", cs.VENICE_SHAPE, True)):
-        g, prob = _state(shape, shuffle, dev, cfg)
-        _cuda._lib = libs[H1_SHAPES[0]]
-        s = gbp.initialise(init_state(prob, cfg, dev), g, cfg)
-        s, _ = gbp.run_gbp(s, g, cfg, 20, with_diagnostics=False)
-        ct = table_kernel.build_table(s.cam_bel, 6)
-        lt = table_kernel.build_table(s.lmk_bel, 3)
-        want = s.clone()
-        sweep_kernel.sweep(want, g, ct, lt, cfg)
-        b, _ = cs.least_ms(cs.sweep_bytes(g, False), 0)
-        for shape_h1 in H1_SHAPES:
-            _cuda._lib = libs[shape_h1]
-            one = s.clone()
-            sweep_kernel.sweep(one, g, ct, lt, cfg)
-            same = all(torch.equal(getattr(one, f), getattr(want, f))
-                       for f in ("pk", "damping_count", "robust"))
-            ms = cs.cuda_ms(lambda: sweep_kernel.sweep(one, g, ct, lt, cfg),
-                            cs.TIMED_SWEEPS)
-            print(f"[h1] {label}: {shape_h1[0]} warps x {shape_h1[1]} "
-                  f"stages {ms:.4f} ms ({b / ms:.0%} of the {b:.4f} ms "
-                  f"bound), same bits as 7 x 2: {same}")
-        del g, s, want, one, ct, lt
-        torch.cuda.empty_cache()
-    _cuda._lib = libs[H1_SHAPES[0]]
+    return build_graph(prob, GBPConfig(), dev)
 
 
 def probe_h3(dev) -> None:
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from gbp_poplar_tpu_torch.config import GBPConfig
     from gbp_poplar_tpu_torch.ops import reduce_kernel
 
     for label, shape, shuffle in (("Ladybug", cs.LADYBUG_SHAPE, False),
                                   ("Venice", cs.VENICE_SHAPE, True)):
-        g, _ = _state(shape, shuffle, dev, GBPConfig())
+        g = _graph(shape, shuffle, dev)
         seg, plan = g.cam_seg, g.cam_seg.plan
         n_real = seg.var.shape[0]
         gen = torch.Generator(device=dev).manual_seed(0)
@@ -134,15 +77,14 @@ def probe_h3(dev) -> None:
 def main(argv) -> int:
     import torch
 
-    if not torch.cuda.is_available() or len(argv) != 1 \
-            or argv[0] not in ("h1", "h3"):
+    if not torch.cuda.is_available() or argv:
         print(__doc__, file=sys.stderr)
         return 1
     import gbp_poplar_tpu_torch  # noqa: F401  (sets TF32 off)
 
     print(f"[probe] {cs.smi_line()}")
     dev = torch.device("cuda", 0)
-    {"h1": probe_h1, "h3": probe_h3}[argv[0]](dev)
+    probe_h3(dev)
     return 0
 
 
