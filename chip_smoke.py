@@ -8,16 +8,19 @@ the final ``ok`` line:
   1. environment: torch/CUDA versions, the card's name and power limit;
      a CUDA device is required;
   2. build the hand-written kernels (csrc/*.cu) with nvcc, one process per
-     source, and print each kernel's registers and spills and H1's launch
-     shape;
+     source, and print each kernel's registers and spills and the launch
+     shapes of H1 and H4;
   3. the fused path's kernels against their plain PyTorch versions on the
-     card: the table build (H2) and the segmented sum (H3) on random inputs
-     and at the Ladybug shape; one fused sweep (H1) on the small pinhole
-     problem, the Snavely problem and the Ladybug-shape state after
-     initialise + 20 sweeps; then each kernel's time beside its plain
-     version's, its bound (the larger of its bytes over 3.35 TB/s and its
-     operations over 67 TFLOP/s) and, for H3, the one library call that
-     computes the same function (``torch.index_add``), per variable kind;
+     card: the table build (H2: each kind alone and both in one launch)
+     and the segmented sum (H3) on random inputs and at the Ladybug shape;
+     one fused sweep (H1) on the small pinhole problem, the Snavely problem
+     and the Ladybug-shape state after initialise + 20 sweeps; then each
+     kernel's time beside its plain version's, its bound (the larger of its
+     bytes over 3.35 TB/s and its operations over 67 TFLOP/s) and, for H3,
+     the one library call that computes the same function
+     (``torch.index_add``), per variable kind; H2 per kind and both kinds
+     by the profiler's device time per launch beside the events' time per
+     host call;
   4. the fused main path at the Ladybug shape (synthetic_problem_large(
      1723, 156000, 7): 1,092,000 edges, 1,092,608 padded), reference
      schedule (accel_every=0): build_graph / init_state on the card,
@@ -41,7 +44,8 @@ the final ``ok`` line:
      final errors must agree;
   8. times at the Venice shape: H4 and H5 beside their plain versions
      and bounds (H5's plain version, ``index_select``, is its library
-     call), H1 and H3 per variable kind with their bounds and H3's
+     call), H1, H2 (per kind, and H2 against its plain version on the
+     Venice state) and H3 per variable kind with their bounds and H3's
      ``index_add``, ms/sweep of both pipelines with and without the
      accelerator, and the accelerator's cost per chunk;
   9. the coarse corrector at the Ladybug shape (cameras in their generated
@@ -219,6 +223,58 @@ def time_reduce_sides(state, graph, n_real: int, card: str) -> float:
     return lib_total
 
 
+def device_ms(fn, reps: int, kernel: str) -> float:
+    """Mean device time (ms) per launch of the kernels whose names contain
+    ``kernel``, over ``reps`` calls of ``fn()``, by torch.profiler, after
+    one warm-up call: the kernel's own time, whatever the host's pace."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    evs = [ev for ev in prof.key_averages()
+           if kernel in ev.key and ev.device_time_total > 0]
+    check(bool(evs), f"the profiler saw no {kernel} launch")
+    return (sum(ev.device_time_total for ev in evs)
+            / sum(ev.count for ev in evs) / 1e3)
+
+
+def time_tables(cam_bel, lmk_bel, where: str, card: str):
+    """H2 at one shape: the cameras alone, the landmarks alone and both in
+    one launch, each by the profiler's device time per launch and by CUDA
+    events per host call (back to back, so at these sizes the events may
+    time the host's launches), beside its bound; prints a line each.
+    Returns the device time, the plain version's time (events), the bound
+    and what bounds it, all for both kinds in one launch."""
+    from gbp_poplar_tpu_torch.ops import table_kernel as tk
+
+    n_c, n_l = cam_bel.shape[1], lmk_bel.shape[1]
+    no_c, no_l = cam_bel[:, :0], lmk_bel[:, :0]      # a kind with no blocks
+    cases = (
+        ("cameras",
+         lambda r=False: tk.build_tables(cam_bel, no_l, reference=r),
+         4 * 63 * n_c),
+        ("landmarks",
+         lambda r=False: tk.build_tables(no_c, lmk_bel, reference=r),
+         4 * 25 * n_l),
+        ("both kinds, one launch",
+         lambda r=False: tk.build_tables(cam_bel, lmk_bel, reference=r),
+         4 * 63 * n_c + 4 * 25 * n_l))
+    for label, fn, n_bytes in cases:
+        dev = device_ms(fn, TIMED_SWEEPS, "table_kernel")
+        ev = cuda_ms(fn, TIMED_SWEEPS)
+        b, by = least_ms(n_bytes, count_ops(lambda: fn(True)))
+        print(f"[time] table {label} at {where} ({n_c} cameras, {n_l} "
+              f"landmarks): device {dev:.4f} ms per launch (profiler), "
+              f"events {ev:.4f} ms per host call; bound {b:.4f} ms by {by} "
+              f"({b / dev:.0%} of it reached) ({card})")
+    return dev, cuda_ms(lambda: fn(True), 5), b, by
+
+
 def smi_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -332,7 +388,7 @@ def coarse_phase(prob, dev, reset_counts, read_counts, card):
     check(all(st.coarse is not None for _, st in log),
           "coarse path: an accelerator step without its coarse step")
     check(launches["sweep"] == COARSE_SWEEPS
-          and launches["table"] >= 2 * COARSE_SWEEPS
+          and launches["table"] >= COARSE_SWEEPS
           and launches["reduce"] >= 2 * COARSE_SWEEPS,
           "coarse path did not go through H1, H2, H3 every sweep")
 
@@ -430,7 +486,7 @@ def driver_phase(raw, dev, reset_counts, read_counts, card):
         check(rc == 0, "ba driver failed")
         swept = n_run - first
         check(len(lines) == swept and counts["sweep"] == swept
-              and counts["table"] >= 2 * swept
+              and counts["table"] >= swept
               and counts["reduce"] >= 2 * swept,
               "ba driver did not go through H1, H2, H3 every sweep")
         return lines, err, counts
@@ -566,7 +622,8 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     name = torch.cuda.get_device_name(0)
     card = smi_line()
-    wrappers = {"sweep": sweep_kernel.sweep, "table": table_kernel.build_table,
+    wrappers = {"sweep": sweep_kernel.sweep,
+                "table": table_kernel.build_tables,
                 "reduce": reduce_kernel.segment_sum,
                 "sweep_planes": sweep_kernel.sweep_planes,
                 "gather": reduce_kernel.gather}
@@ -594,17 +651,17 @@ def main() -> int:
         for line in f:
             if "Compiling entry" in line or "spill" in line or "Used" in line:
                 print("[build] " + line.strip())
-    warps, stages, smem = _cuda.sweep_config()
-    print(f"[build] H1 launch: one block per SM of {warps} warps, {stages} "
-          f"stages of 32 edges per warp, {smem} B of shared memory per block")
+    warps, stages, smem_h1, smem_h4 = _cuda.sweep_config()
+    print(f"[build] H1 and H4 launch: one block per SM of {warps} warps, "
+          f"{stages} stages of 32 edges per warp, {smem_h1} B (H1) and "
+          f"{smem_h4} B (H4) of shared memory per block")
 
     # ---- 3. the fused path's kernels against their plain versions ----
     cfg = GBPConfig(accel_every=0, coarse_groups=0)
     rng = np.random.default_rng(0)
 
-    def table_case(label, bel, d):
-        k = table_kernel.build_table(bel, d)
-        r = table_kernel.build_table(bel, d, reference=True)
+    def table_case(label, bel, d, k):
+        r = table_kernel.build_table_reference(bel, d)
         comp = bel.shape[0]
         check(same(k[:, :comp], r[:, :comp]),
               f"table {label}: belief columns differ")
@@ -618,6 +675,25 @@ def main() -> int:
         check(rel <= TABLE_RTOL, f"table {label}: means differ")
         return diff.max().item()
 
+    def tables_case(label, cam_bel, lmk_bel):
+        """Both kinds in one launch against the plain version and against
+        the same kernel's launch for one kind, the other given no
+        variables."""
+        worst = 0.0
+        launched = table_kernel.build_tables.launches
+        both = table_kernel.build_tables(cam_bel, lmk_bel)
+        check(table_kernel.build_tables.launches == launched + 1,
+              f"tables {label}: not one launch")
+        alone = (table_kernel.build_tables(cam_bel, lmk_bel[:, :0])[0],
+                 table_kernel.build_tables(cam_bel[:, :0], lmk_bel)[1])
+        for (bel, d), k, a in zip(((cam_bel, 6), (lmk_bel, 3)), both, alone):
+            worst = max(worst, table_case(f"{label} d={d}", bel, d, k))
+            check(same(k, a),
+                  f"tables {label} d={d}: one launch differs from one kind")
+        print(f"[H2] {label}: both kinds in one launch equal to the one-kind "
+              f"launches")
+        return worst
+
     def random_beliefs(d, n):
         comp = d + d * (d + 1) // 2
         eta = rng.normal(0, 1, (d, n))
@@ -630,10 +706,9 @@ def main() -> int:
         check(bel.shape[0] == comp, "belief layout")
         return torch.tensor(bel, device=dev)
 
-    h2_err = 0.0
-    for d, n in ((6, LADYBUG_SHAPE[0]), (3, LADYBUG_SHAPE[1])):
-        h2_err = max(h2_err, table_case(f"random d={d} n={n}",
-                                        random_beliefs(d, n), d))
+    h2_err = tables_case(f"random n={LADYBUG_SHAPE[0]}/{LADYBUG_SHAPE[1]}",
+                         random_beliefs(6, LADYBUG_SHAPE[0]),
+                         random_beliefs(3, LADYBUG_SHAPE[1]))
 
     def reduce_case(label, planes, seg, prior):
         k = reduce_kernel.segment_sum(planes, seg, prior)
@@ -698,8 +773,8 @@ def main() -> int:
         return worst
 
     def sweep_case(label, state, graph):
-        ct = table_kernel.build_table(state.cam_bel, 6, reference=True)
-        lt = table_kernel.build_table(state.lmk_bel, 3, reference=True)
+        ct, lt = table_kernel.build_tables(state.cam_bel, state.lmk_bel,
+                                           reference=True)
         sk, sr = state.clone(), state.clone()
         sweep_kernel.sweep(sk, graph, ct, lt, cfg)
         sweep_kernel.sweep(sr, graph, ct, lt, cfg, reference=True)
@@ -721,8 +796,8 @@ def main() -> int:
                              with_diagnostics=False)
     h1_err = max(h1_err, sweep_case("Ladybug after initialise + 20 sweeps",
                                     state_l, graph_l))
-    for d, bel in ((6, state_l.cam_bel), (3, state_l.lmk_bel)):
-        h2_err = max(h2_err, table_case(f"Ladybug state d={d}", bel, d))
+    h2_err = max(h2_err, tables_case("Ladybug state", state_l.cam_bel,
+                                     state_l.lmk_bel))
     h3_err = max(h3_err, reduce_case(
         "Ladybug state cam", state_l.pk[54:81], graph_l.cam_seg,
         state_l.cam_prior))
@@ -732,22 +807,17 @@ def main() -> int:
 
     # each kernel's time beside its plain version's, at the Ladybug shape
     st_k, st_r = state_l.clone(), state_l.clone()
-    ct = table_kernel.build_table(state_l.cam_bel, 6)
-    lt = table_kernel.build_table(state_l.lmk_bel, 3)
+    ct, lt = table_kernel.build_tables(state_l.cam_bel, state_l.lmk_bel)
+    # H2 by the profiler's device time (its events' time is the host's)
+    h2_ms, h2_plain, h2_b, h2_by = time_tables(
+        state_l.cam_bel, state_l.lmk_bel, "the Ladybug shape", card)
     times = {
         "sweep": (
             cuda_ms(lambda: sweep_kernel.sweep(st_k, graph_l, ct, lt, cfg),
                     TIMED_SWEEPS),
             cuda_ms(lambda: sweep_kernel.sweep(st_r, graph_l, ct, lt, cfg,
                                                reference=True), 3)),
-        "table": (
-            cuda_ms(lambda: (table_kernel.build_table(state_l.cam_bel, 6),
-                             table_kernel.build_table(state_l.lmk_bel, 3)),
-                    TIMED_SWEEPS),
-            cuda_ms(lambda: (
-                table_kernel.build_table(state_l.cam_bel, 6, reference=True),
-                table_kernel.build_table(state_l.lmk_bel, 3,
-                                         reference=True)), 5)),
+        "table": (h2_ms, h2_plain),
         "reduce": (
             cuda_ms(lambda: gbp.update_beliefs(st_k, graph_l, cfg),
                     TIMED_SWEEPS),
@@ -765,12 +835,7 @@ def main() -> int:
         "sweep": (*least_ms(sweep_bytes(graph_l, False), count_ops(
             lambda: sweep_kernel.sweep(st_r, graph_l, ct, lt, cfg,
                                        reference=True))), None),
-        "table": (*least_ms(4 * 63 * graph_l.n_keyframes
-                         + 4 * 25 * graph_l.n_points, count_ops(
-            lambda: (table_kernel.build_table(state_l.cam_bel, 6,
-                                              reference=True),
-                     table_kernel.build_table(state_l.lmk_bel, 3,
-                                              reference=True)))), None),
+        "table": (h2_b, h2_by, None),
         "reduce": (*least_ms(cam_w[0] + lmk_w[0], cam_w[1] + lmk_w[1]),
                    time_reduce_sides(st_k, graph_l, n_real, card)),
     }
@@ -805,7 +870,7 @@ def main() -> int:
     print(f"[main] launches in the Ladybug main path: {launches_l}")
     check(bool(np.isfinite(err).all()), "main path: non-finite error")
     check(err[-1] < err0, "main path: error did not fall")
-    check(launches_l == {"sweep": LADYBUG_SWEEPS, "table": 2 * LADYBUG_SWEEPS,
+    check(launches_l == {"sweep": LADYBUG_SWEEPS, "table": LADYBUG_SWEEPS,
                          "reduce": 2 * LADYBUG_SWEEPS + 2, "sweep_planes": 0,
                          "gather": 0},
           "main path did not go through every kernel once per sweep")
@@ -902,9 +967,8 @@ def main() -> int:
     sweep_kernel.sweep_planes(
         s4, graph_v, reduce_kernel.gather(state_v.cam_bel, graph_v.cam_idx),
         reduce_kernel.gather(state_v.lmk_bel, graph_v.lmk_idx), cfg_u)
-    sweep_kernel.sweep(s1, graph_v, table_kernel.build_table(state_v.cam_bel,
-                                                             6),
-                       table_kernel.build_table(state_v.lmk_bel, 3), cfg_u)
+    sweep_kernel.sweep(s1, graph_v, *table_kernel.build_tables(
+        state_v.cam_bel, state_v.lmk_bel), cfg_u)
     compare_sweeps("H4", "Venice, H4 on gathered planes vs H1 on tables",
                    graph_v, s4, s1, "H1")
     h4_vs_h1 = all(torch.equal(getattr(s4, f), getattr(s1, f))
@@ -953,9 +1017,10 @@ def main() -> int:
           "Venice main path: the accelerator did not step at 160, 210, 260")
     # 10 annealed sweeps, then chunks of 50: chunk 1 plain, chunk 2 dead
     # but averaging its means, chunks 3-5 live, 40 plain sweeps; tables
-    # (H2) only for the 200 averaged sweeps' means; reductions (H3) also
-    # at initialise and for the accelerator's active degrees
-    check(launches_v == {"sweep": 0, "table": 400,
+    # (H2, both kinds in one launch) only for the 200 averaged sweeps'
+    # means; reductions (H3) also at initialise and for the accelerator's
+    # active degrees
+    check(launches_v == {"sweep": 0, "table": 200,
                          "reduce": 2 * VENICE_SWEEPS + 4,
                          "sweep_planes": VENICE_SWEEPS,
                          "gather": 2 * VENICE_SWEEPS},
@@ -1013,10 +1078,11 @@ def main() -> int:
               f"{'none' if lib is None else f'{lib:.4f} ms'} ({card})")
     print(f"[time] gather library: index_select {times['gather'][1]:.4f} ms "
           f"for both kinds at {e_v} padded edges ({card})")
-    # H1 on the same Venice state (the fused pipeline's sweep), and H3 per
-    # side with the cameras shuffled
-    ct = table_kernel.build_table(s.cam_bel, 6)
-    lt = table_kernel.build_table(s.lmk_bel, 3)
+    # H2 and H1 on the same Venice state (the fused pipeline's table
+    # build and sweep), and H3 per side with the cameras shuffled
+    h2_err = max(h2_err, tables_case("Venice state", s.cam_bel, s.lmk_bel))
+    time_tables(s.cam_bel, s.lmk_bel, "the Venice shape", card)
+    ct, lt = table_kernel.build_tables(s.cam_bel, s.lmk_bel)
     h1_v = cuda_ms(lambda: sweep_kernel.sweep(st_k, graph_v, ct, lt, cfg_u),
                    TIMED_SWEEPS)
     b, by = least_ms(sweep_bytes(graph_v, False), 0)

@@ -15,8 +15,9 @@ One sweep is one of two pipelines (``cfg.fused``), each of kernels with
 their plain PyTorch versions, chosen by the tensors' device and
 ``cfg.kernels``:
   fused (default):
-    1. ops/table_kernel.build_table: per-variable belief tables with the
-       pre-solved means and a validity flag (cameras and landmarks);
+    1. ops/table_kernel.build_tables: per-variable belief tables with the
+       pre-solved means and a validity flag (cameras and landmarks, one
+       launch);
     2. ops/sweep_kernel.sweep: the per-edge state machine and messages
        (``edge_math``), in place on the packed edge state;
   unfused (the JAX package's pipeline on graphs without fused windows):
@@ -56,14 +57,12 @@ def _sanitized_means(state: GBPState, cfg: GBPConfig):
     """Belief means per variable, each column zeroed whole where any
     component is not finite: the JAX package's
     ``_sanitize_means(*_variable_means(state))``, read from the belief
-    tables (ops/table_kernel.build_table) that hold exactly that."""
-    ref = cfg.kernels == "reference"
-    out = []
-    for bel, d in ((state.cam_bel, CAM_DOF), (state.lmk_bel, LMK_DOF)):
-        tbl = table_kernel.build_table(bel, d, reference=ref)
-        comp = bel.shape[0]
-        out.append(tbl[:, comp:comp + d].T)
-    return out
+    tables (ops/table_kernel.build_tables) that hold exactly that."""
+    tables = table_kernel.build_tables(state.cam_bel, state.lmk_bel,
+                                       reference=cfg.kernels == "reference")
+    return [tbl[:, bel.shape[0]:bel.shape[0] + d].T
+            for tbl, bel, d in zip(tables, (state.cam_bel, state.lmk_bel),
+                                   (CAM_DOF, LMK_DOF))]
 
 
 # ---------------------------------------------------------------------------
@@ -321,10 +320,8 @@ def gbp_sweep(state: GBPState, graph: GBPGraph, cfg: GBPConfig) -> GBPState:
     otherwise the beliefs gathered per edge and the unfused sweep."""
     ref = cfg.kernels == "reference"
     if cfg.fused:
-        cam_tbl = table_kernel.build_table(state.cam_bel, CAM_DOF,
-                                           reference=ref)
-        lmk_tbl = table_kernel.build_table(state.lmk_bel, LMK_DOF,
-                                           reference=ref)
+        cam_tbl, lmk_tbl = table_kernel.build_tables(
+            state.cam_bel, state.lmk_bel, reference=ref)
         sweep_kernel.sweep(state, graph, cam_tbl, lmk_tbl, cfg, reference=ref)
     else:
         bc = reduce_kernel.gather(state.cam_bel, graph.cam_idx, reference=ref)

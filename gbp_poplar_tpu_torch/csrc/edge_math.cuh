@@ -14,6 +14,7 @@
 #include <stdint.h>
 
 #include "planes.cuh"
+#include "table.cuh"
 
 namespace gbp {
 
@@ -50,13 +51,6 @@ enum : int {
   R_F_LAM_LL = 48, R_MSG_C_ETA = 54, R_MSG_C_LAM = 60, R_MSG_L_ETA = 81,
   R_MSG_L_LAM = 84, R_DAMPING = 90, R_MU = 91, R_LIN_MU = 100,
   PACK_ROWS = 109,
-};
-
-// Columns of the belief tables (ops/table_kernel.py); a belief itself is
-// eta | packed Lambda, CAM_COMP / LMK_COMP values.
-enum : int {
-  CAM_COMP = 27, CAM_WIDTH = 36, CAM_MU = 27, CAM_VALID = 33,
-  LMK_COMP = 9, LMK_WIDTH = 16, LMK_MU = 9, LMK_VALID = 12,
 };
 
 struct Potential {
@@ -215,34 +209,16 @@ __device__ __forceinline__ void linearise(const SweepParams& p,
   out.z = y_cf[2];
 }
 
-// Accessors for one edge's column of the packed [109, E] state. edge_math
-// reads a row's old value with ld(row) and writes its new one with
-// st(row, x); st_keep marks the factor rows whose new values the message
-// phase uses again, and held(row, x) gives such a value back.
-//
-// EdgeColumn (H4): the column in global memory, read and written in
-// place; held() returns the value the caller still holds in a register.
-struct EdgeColumn {
-  float* base;                // &pk[0][e]
-  long long stride;           // E
-  __device__ __forceinline__ float ld(int row) const {
-    return base[row * stride];
-  }
-  __device__ __forceinline__ void st(int row, float x) const {
-    base[row * stride] = x;
-  }
-  __device__ __forceinline__ void st_keep(int row, float x) const {
-    base[row * stride] = x;
-  }
-  __device__ __forceinline__ float held(int, float x) const { return x; }
-};
-
-// TileColumn (H1): the column staged in a tile [rows][T] (shared memory on
-// the card). Old values come from the tile; new values go straight to the
-// global state; st_keep also writes the new value over the old one in the
-// tile, and held() reads it back from there, so the 54 factor values need
-// no registers between the factor update and the messages. Every row's
-// old value is read before st_keep overwrites it (edge_math's order).
+// The accessor for one edge's column of the packed [109, E] state, the
+// column staged in a tile [rows][T] (shared memory on the card).
+// edge_math reads a row's old value with ld(row) and writes its new one
+// with st(row, x); st_keep marks the factor rows whose new values the
+// message phase uses again, and held(row) gives such a value back. Old
+// values come from the tile; new values go straight to the global state;
+// st_keep also writes the new value over the old one in the tile, and
+// held() reads it back from there, so the 54 factor values need no
+// registers between the factor update and the messages. Every row's old
+// value is read before st_keep overwrites it (edge_math's order).
 struct TileColumn {
   float* tile;                // &tile[0][t]
   int tile_stride;            // T
@@ -258,7 +234,7 @@ struct TileColumn {
     tile[row * tile_stride] = x;
     base[row * stride] = x;
   }
-  __device__ __forceinline__ float held(int row, float) const {
+  __device__ __forceinline__ float held(int row) const {
     return tile[row * tile_stride];
   }
 };
@@ -270,9 +246,8 @@ struct TileColumn {
 // solves its means per edge and passes true, as the JAX edge_math without
 // premu tests finiteness of the mean step only. Every old value of a row is
 // read before the row is written; each thread touches only its own edge.
-template <class Col>
 __device__ __forceinline__ void edge_math(const SweepParams& p,
-                                          const Col& pk, int& dc,
+                                          const TileColumn& pk, int& dc,
                                           uint8_t& rb, bool active,
                                           const float bc[CAM_COMP],
                                           const float bl[LMK_COMP],
@@ -336,50 +311,35 @@ __device__ __forceinline__ void edge_math(const SweepParams& p,
     }
   }
 
-  // adopt the new potentials where relinearised
-  float f_eta_c[6], f_eta_l[3], f_cl[6][3], f_lam_cc[21], f_lam_ll[6];
-#pragma unroll
-  for (int i = 0; i < 6; ++i) {
-    f_eta_c[i] = relin ? pot.eta_c[i] : pk.ld(R_F_ETA_C + i);
-    pk.st_keep(R_F_ETA_C + i, f_eta_c[i]);
-  }
-#pragma unroll
-  for (int i = 0; i < 3; ++i) {
-    f_eta_l[i] = relin ? pot.eta_l[i] : pk.ld(R_F_ETA_L + i);
-    pk.st_keep(R_F_ETA_L + i, f_eta_l[i]);
-  }
-#pragma unroll
-  for (int s = 0; s < 21; ++s) {
-    f_lam_cc[s] = relin ? pot.lam_cc[s] : pk.ld(R_F_LAM_CC + s);
-    pk.st_keep(R_F_LAM_CC + s, f_lam_cc[s]);
-  }
+  // adopt the new potentials where relinearised: the new factor values go
+  // to the state and are parked in the tile (st_keep), and the message
+  // phase reads them back from there (held)
 #pragma unroll
   for (int i = 0; i < 6; ++i)
+    pk.st_keep(R_F_ETA_C + i, relin ? pot.eta_c[i] : pk.ld(R_F_ETA_C + i));
 #pragma unroll
-    for (int j = 0; j < 3; ++j) {
-      const int s = i * 3 + j;
-      f_cl[i][j] = relin ? pot.lam_cl[s] : pk.ld(R_F_LAM_CL + s);
-      pk.st_keep(R_F_LAM_CL + s, f_cl[i][j]);
-    }
+  for (int i = 0; i < 3; ++i)
+    pk.st_keep(R_F_ETA_L + i, relin ? pot.eta_l[i] : pk.ld(R_F_ETA_L + i));
 #pragma unroll
-  for (int s = 0; s < 6; ++s) {
-    f_lam_ll[s] = relin ? pot.lam_ll[s] : pk.ld(R_F_LAM_LL + s);
-    pk.st_keep(R_F_LAM_LL + s, f_lam_ll[s]);
-  }
-  // the new factor values, from here on through the accessor: the
-  // registers above (EdgeColumn) or the tile (TileColumn)
-  auto fec = [&](int i) { return pk.held(R_F_ETA_C + i, f_eta_c[i]); };
-  auto fel = [&](int i) { return pk.held(R_F_ETA_L + i, f_eta_l[i]); };
+  for (int s = 0; s < 21; ++s)
+    pk.st_keep(R_F_LAM_CC + s,
+               relin ? pot.lam_cc[s] : pk.ld(R_F_LAM_CC + s));
+#pragma unroll
+  for (int s = 0; s < 18; ++s)
+    pk.st_keep(R_F_LAM_CL + s,
+               relin ? pot.lam_cl[s] : pk.ld(R_F_LAM_CL + s));
+#pragma unroll
+  for (int s = 0; s < 6; ++s)
+    pk.st_keep(R_F_LAM_LL + s,
+               relin ? pot.lam_ll[s] : pk.ld(R_F_LAM_LL + s));
+  auto fec = [&](int i) { return pk.held(R_F_ETA_C + i); };
+  auto fel = [&](int i) { return pk.held(R_F_ETA_L + i); };
   auto fcc = [&](int i, int j) {
-    const int s = sym_slot(i, j);
-    return pk.held(R_F_LAM_CC + s, f_lam_cc[s]);
+    return pk.held(R_F_LAM_CC + sym_slot(i, j));
   };
-  auto fcl = [&](int i, int j) {
-    return pk.held(R_F_LAM_CL + i * 3 + j, f_cl[i][j]);
-  };
+  auto fcl = [&](int i, int j) { return pk.held(R_F_LAM_CL + i * 3 + j); };
   auto fll = [&](int i, int j) {
-    const int s = sym_slot(i, j);
-    return pk.held(R_F_LAM_LL + s, f_lam_ll[s]);
+    return pk.held(R_F_LAM_LL + sym_slot(i, j));
   };
 #pragma unroll
   for (int i = 0; i < 9; ++i) {
@@ -516,9 +476,8 @@ __device__ __forceinline__ void edge_math(const SweepParams& p,
 
 // One edge of the fused sweep (H1): ``bc`` / ``bl`` are the edge's rows of
 // the belief tables, which carry the means solved once per variable.
-template <class Col>
 __device__ __forceinline__ void edge_math_tables(
-    const SweepParams& p, const Col& pk, int& dc, uint8_t& rb,
+    const SweepParams& p, const TileColumn& pk, int& dc, uint8_t& rb,
     bool active, const float bc[CAM_WIDTH], const float bl[LMK_WIDTH],
     float meas_u, float meas_v, float meas_var, const float intr[3]) {
   float mu[9];
@@ -531,19 +490,15 @@ __device__ __forceinline__ void edge_math_tables(
             meas_var, intr);
 }
 
-// One edge of the unfused sweep (H4): ``bc_col`` / ``bl_col`` point at the
-// edge's column of the gathered belief planes [27, E] / [9, E] (row stride
-// ``stride``). The means are solved here, per edge, by the same belief_mean
-// as the table build; the solve's temporaries end before edge_math starts.
+// One edge of the unfused sweep (H4): ``bc`` / ``bl`` are the edge's
+// gathered beliefs (eta | packed Lambda). The means are solved here, per
+// edge, by the same belief_mean as the table build; the solve's
+// temporaries end before edge_math starts.
 __device__ __forceinline__ void edge_math_gathered(
-    const SweepParams& p, const EdgeColumn& pk, int& dc, uint8_t& rb,
-    bool active, const float* bc_col, const float* bl_col, long long stride,
+    const SweepParams& p, const TileColumn& pk, int& dc, uint8_t& rb,
+    bool active, const float bc[CAM_COMP], const float bl[LMK_COMP],
     float meas_u, float meas_v, float meas_var, const float intr[3]) {
-  float bc[CAM_COMP], bl[LMK_COMP], mu[9];
-#pragma unroll
-  for (int i = 0; i < CAM_COMP; ++i) bc[i] = bc_col[i * stride];
-#pragma unroll
-  for (int i = 0; i < LMK_COMP; ++i) bl[i] = bl_col[i * stride];
+  float mu[9];
   belief_mean<6>(bc, bc + 6, mu);
   belief_mean<3>(bl, bl + 3, mu + 6);
   edge_math(p, pk, dc, rb, active, bc, bl, mu, true, meas_u, meas_v,

@@ -1,59 +1,94 @@
-// Per-variable belief tables (H2): [eta | packed Lambda | mean | valid | 0].
+// Per-variable belief tables (H2), both kinds in one launch:
+// [eta | packed Lambda | mean | valid | 0] per camera (36 floats) and per
+// landmark (16 floats), row-major [V, width] so the fused sweep (H1) reads
+// a variable's row with aligned 16-byte loads.
 //
 // Replaces gbp_poplar_tpu/ops/table_kernel.py::_kernel (build_lmk_table)
-// and the camera-side XLA glue of core/gbp.py::_make_tables. One thread
-// per variable, templated on the kind: D = 6 solves the camera mean by
-// Cholesky (planes.solve_sym), D = 3 the landmark mean by the adjugate
-// (planes.inv_sym3), both in planes.cuh's belief_mean, which the unfused
-// sweep kernel (H4) shares. A mean with any non-finite component is
-// zeroed whole with valid = 0 (the JAX package's _sanitize_means:
-// finiteness only).
-// Bound: bytes (read 27 or 9 floats, write 36 or 16); rows are written
-// with 16-byte stores so the sweep kernel reads them the same way.
-#include "planes.cuh"
+// and the camera-side XLA glue of core/gbp.py::_make_tables. The row of
+// one variable is csrc/table.cuh's table_row.
+//
+// Bound on the H100: bytes (read 27 or 9 floats, write 36 or 16 per
+// variable): 4.8 us at the Ladybug shape, 30 us at Venice, for both kinds.
+// The camera side is tiny (a few thousand variables) but each of its
+// threads runs a serial 6x6 Cholesky and two triangular solves with IEEE
+// divides and square roots; the landmark side is the bytes.
+//
+// Design: one launch for both kinds (one host call and one launch per
+// build instead of two). Blocks of 128 variables; the camera blocks come
+// first in the grid, so their serial chains start at once and run beside
+// the landmark blocks. A block stages its rows in shared memory (row
+// stride padded so that the 16-byte stores of a phase of 8 lanes fall in
+// distinct banks) and writes them out as consecutive 16-byte vectors
+// across its threads: the block's part of the table is one contiguous
+// range, written coalesced. Each thread writing its own row instead took
+// 25 % longer at the Venice shape (PERF.md).
+#include "table.cuh"
 
 namespace gbp {
 
+constexpr int TABLE_THREADS = 128;   // variables per block
+
+// Row stride of a block's staged rows, in floats: the width, or the width
+// + 4 where width / 4 is even, so that lane t's row starts 16 * odd * t
+// bytes from lane 0's and 8 lanes' 16-byte stores hit 8 distinct bank
+// quads.
+__host__ __device__ constexpr int staged_stride(int w) {
+  return (w / 4) % 2 ? w : w + 4;
+}
+
 template <int D, int W>
-__global__ void table_kernel(const float* __restrict__ bel, int n_var,
-                             float* __restrict__ tbl) {
-  constexpr int NS = D * (D + 1) / 2;
-  const int v = blockIdx.x * blockDim.x + threadIdx.x;
-  if (v >= n_var) return;
-  float row[W];
+__device__ __forceinline__ void table_block(const float* __restrict__ bel,
+                                            int n_var,
+                                            float* __restrict__ tbl,
+                                            int block, float* staged) {
+  constexpr int S = staged_stride(W);
+  const int v0 = block * TABLE_THREADS;
+  const int v = v0 + threadIdx.x;
+  if (v < n_var) {
+    float row[W];
+    table_row<D, W>(bel, n_var, v, row);
+    float4* dst = reinterpret_cast<float4*>(staged + threadIdx.x * S);
 #pragma unroll
-  for (int i = 0; i < D + NS; ++i) row[i] = bel[(size_t)i * n_var + v];
-  float mu[D];
-  belief_mean<D>(row, row + D, mu);
-  bool ok = true;
-#pragma unroll
-  for (int i = 0; i < D; ++i) ok = ok && isfinite(mu[i]);
-#pragma unroll
-  for (int i = 0; i < D; ++i) row[D + NS + i] = ok ? mu[i] : 0.0f;
-  row[2 * D + NS] = ok ? 1.0f : 0.0f;
-#pragma unroll
-  for (int i = 2 * D + NS + 1; i < W; ++i) row[i] = 0.0f;
-  float4* dst = reinterpret_cast<float4*>(tbl + (size_t)v * W);
-#pragma unroll
-  for (int q = 0; q < W / 4; ++q)
-    dst[q] = make_float4(row[4 * q], row[4 * q + 1], row[4 * q + 2],
-                         row[4 * q + 3]);
+    for (int q = 0; q < W / 4; ++q)
+      dst[q] = make_float4(row[4 * q], row[4 * q + 1], row[4 * q + 2],
+                           row[4 * q + 3]);
+  }
+  __syncthreads();
+  const int rows = min(TABLE_THREADS, n_var - v0);
+  float4* out = reinterpret_cast<float4*>(tbl + (size_t)v0 * W);
+  for (int f = threadIdx.x; f < rows * (W / 4); f += TABLE_THREADS) {
+    const int r = f / (W / 4), q = f % (W / 4);
+    out[f] = *reinterpret_cast<const float4*>(staged + r * S + 4 * q);
+  }
+}
+
+__global__ void __launch_bounds__(TABLE_THREADS)
+table_kernel(const float* __restrict__ cam_bel, int n_cam,
+             float* __restrict__ cam_tbl, const float* __restrict__ lmk_bel,
+             int n_lmk, float* __restrict__ lmk_tbl, int cam_blocks) {
+  __shared__ __align__(16) float staged[TABLE_THREADS
+                                        * staged_stride(CAM_WIDTH)];
+  static_assert(staged_stride(LMK_WIDTH) <= staged_stride(CAM_WIDTH),
+                "the landmark rows fit the camera rows' buffer");
+  if ((int)blockIdx.x < cam_blocks)
+    table_block<6, CAM_WIDTH>(cam_bel, n_cam, cam_tbl, blockIdx.x, staged);
+  else
+    table_block<3, LMK_WIDTH>(lmk_bel, n_lmk, lmk_tbl,
+                              blockIdx.x - cam_blocks, staged);
 }
 
 }  // namespace gbp
 
-extern "C" int gbp_table_launch(int d, const float* bel, int n_var,
-                                float* tbl, int width, void* stream) {
-  if (n_var <= 0) return 0;
-  const int threads = 128;
-  const int blocks = (n_var + threads - 1) / threads;
-  cudaStream_t s = (cudaStream_t)stream;
-  if (d == 6 && width == 36) {
-    gbp::table_kernel<6, 36><<<blocks, threads, 0, s>>>(bel, n_var, tbl);
-  } else if (d == 3 && width == 16) {
-    gbp::table_kernel<3, 16><<<blocks, threads, 0, s>>>(bel, n_var, tbl);
-  } else {
-    return (int)cudaErrorInvalidValue;
-  }
+// Both tables in one launch; a kind with no variables (n = 0) gets no
+// blocks.
+extern "C" int gbp_tables_launch(const float* cam_bel, int n_cam,
+                                 float* cam_tbl, const float* lmk_bel,
+                                 int n_lmk, float* lmk_tbl, void* stream) {
+  const int t = gbp::TABLE_THREADS;
+  const int cam_blocks = (n_cam + t - 1) / t;
+  const int blocks = cam_blocks + (n_lmk + t - 1) / t;
+  if (blocks == 0) return 0;
+  gbp::table_kernel<<<blocks, t, 0, (cudaStream_t)stream>>>(
+      cam_bel, n_cam, cam_tbl, lmk_bel, n_lmk, lmk_tbl, cam_blocks);
   return (int)cudaGetLastError();
 }

@@ -12,12 +12,14 @@ means, and write the 12 packed f32 fields, the damping counter and the
 robust flag back. The per-variable message sums that the TPU kernel
 accumulated in its epilogue are left to ops/reduce_kernel.py.
 
-Kernel (csrc/sweep.cu, with the edge math in csrc/edge_math.cuh, the
+Kernels (csrc/sweep.cu, with the edge math in csrc/edge_math.cuh, the
 small-matrix algebra in csrc/planes.cuh and the bulk copies in
 csrc/bulk.cuh). Bound on the H100: bytes. Each edge reads and writes its
-109 packed rows (872 B), the counter and flag, and reads 7 more words and
-two table rows: 906 B per edge plus the tables once, against about 1,900
-float operations. Design: persistent blocks, one per SM, of 7 warps; each
+109 packed rows (872 B), the counter and flag, and reads 5 more words and
+either two ids and two table rows (H1: 906 B per edge plus the tables
+once) or its 36 gathered belief values (H4: 1,042 B per edge), against
+about 1,900 float operations (H4: about 2,200, the means solved per edge).
+Design, shared by both: persistent blocks, one per SM, of 7 warps; each
 warp walks over tiles of 32 edges and keeps its next tile in flight in a
 ring of two shared-memory stages, filled by 1-D bulk copies (one per row)
 whose bytes an mbarrier counts. The edge math reads its column from the
@@ -25,13 +27,14 @@ stage, writes the new values straight to the global state (coalesced per
 row), and parks the new factor values in the stage rather than in
 registers. Tiles that are partial or not 16-byte aligned (an edge count
 that is not a multiple of 4) are copied lane by lane in the kernel. The
-plane layout [row, E] keeps every access coalesced; the belief rows come
+plane layout [row, E] keeps every access coalesced; H1's belief rows come
 by indexed 16-byte loads from the small tables (consecutive edges share a
-landmark and a handful of cameras, so they hit in L1/L2). No windows,
-one-hot gathers or brick layout: those answered TPU limits the H100 does
-not have. The arithmetic is edge_math's in both kernels, so H1 and H4
-agree to the bit; registers and spills are recorded by the build
-(ops/_cuda.py).
+landmark and a handful of cameras, so they hit in L1/L2); H4's gathered
+values by 36 coalesced loads per lane, issued before the lane waits for
+its stage. No windows, one-hot gathers or brick layout: those answered
+TPU limits the H100 does not have. The arithmetic is edge_math's in both
+kernels, so H1 and H4 agree to the bit; registers and spills are recorded
+by the build (ops/_cuda.py).
 """
 
 from __future__ import annotations
@@ -156,7 +159,7 @@ def sweep(state, graph, cam_tbl: torch.Tensor, lmk_tbl: torch.Tensor, cfg,
           reference: bool = False) -> None:
     """One sweep of every edge, in place on ``state.pk``,
     ``state.damping_count`` and ``state.robust``. ``cam_tbl`` [C, 36] and
-    ``lmk_tbl`` [L, 16] come from ops/table_kernel.build_table. CPU tensors
+    ``lmk_tbl`` [L, 16] come from ops/table_kernel.build_tables. CPU tensors
     (or ``reference``) take the plain version; CUDA tensors launch
     csrc/sweep.cu."""
     pk = state.pk
@@ -196,13 +199,14 @@ sweep.launches = 0
 # belief planes gathered per edge beforehand (ops/reduce_kernel.gather), as
 # the JAX package's unfused pipeline runs it (graphs without fused-sweep
 # windows, or ``pallas_fused=False``). Kernel: csrc/sweep.cu
-# ``sweep_planes_kernel``, one thread per edge, sharing csrc/edge_math.cuh
-# with H1; the means are solved per edge by csrc/planes.cuh ``belief_mean``,
-# the routine the table build (H2) uses, so H4 and H1 give the same result
-# on the same state. Bound on the H100: bytes, H1's ~1 KB of packed state
-# per edge plus the 144 B of gathered planes, every access coalesced. What
-# it does not copy from the TPU kernel: the brick layout, the sub-blocks,
-# the gather-native edge-major input and the block grid.
+# ``sweep_planes_kernel``, H1's tile walk (stages, bulk copies,
+# ``TileColumn``) with the intrinsics staged and the gathered values loaded
+# per lane; the means are solved per edge by csrc/planes.cuh
+# ``belief_mean``, the routine the table build (H2) uses, so H4 and H1 give
+# the same result on the same state. Bound on the H100: bytes, H1's packed
+# state per edge plus the 144 B of gathered planes. What it does not copy
+# from the TPU kernel: the brick layout, the sub-blocks, the gather-native
+# edge-major input and the block grid.
 
 def sweep_planes_reference(state, graph, bc: torch.Tensor, bl: torch.Tensor,
                            cfg) -> None:

@@ -15,12 +15,15 @@ Sanitise rule, exactly the JAX package's ``_sanitize_means``: a mean with
 any non-finite component is zeroed whole and flagged invalid; the test is
 finiteness only.
 
-Kernel (csrc/table.cu): one thread per variable. Bound on the H100:
-bytes (read 27 or 9 floats, write 36 or 16); the 6x6 solve is about 200
-flops per camera and there are only thousands of cameras. Design: the
-tables are row-major [V, width] so the sweep kernel reads a variable's
-whole row with aligned 16-byte loads; the write of a row by one thread is
-strided across threads but the tables are small (22 MB at 1.09M edges).
+Kernel (csrc/table.cu, the per-variable body in csrc/table.cuh): both
+kinds in one launch, blocks of 128 variables, the camera blocks first.
+Bound on the H100: bytes (read 27 or 9 floats, write 36 or 16 per
+variable); the 6x6 solve is about 200 flops per camera and there are only
+thousands of cameras. Design: the tables are row-major [V, width] so the
+sweep kernel reads a variable's whole row with aligned 16-byte loads; a
+block stages its rows in shared memory and writes its contiguous part of
+the table as consecutive 16-byte vectors across its threads. One call
+(``build_tables``) and one launch per build serve both kinds.
 """
 
 from __future__ import annotations
@@ -61,28 +64,49 @@ def build_table_reference(bel: torch.Tensor, d: int) -> torch.Tensor:
     return torch.cat([bel, mu, ok.to(bel.dtype), pad]).T.contiguous()
 
 
-def build_table(bel: torch.Tensor, d: int,
-                reference: bool = False) -> torch.Tensor:
-    """[V, width] table from a [d + n_sym, V] belief (``d`` = 6 cameras,
-    3 landmarks). CPU tensors (or ``reference``) take the plain version;
-    CUDA tensors launch csrc/table.cu."""
-    if reference or bel.device.type == "cpu":
-        return build_table_reference(bel, d)
-    comp, width = _layout(d)
-    if bel.device.type != "cuda":
-        raise ValueError(f"build_table: unsupported device {bel.device}")
-    if (bel.dtype != torch.float32 or bel.shape[0] != comp
+def _check_belief(bel: torch.Tensor, d: int, device) -> None:
+    comp, _ = _layout(d)
+    if bel.device != device:
+        raise ValueError(f"build_tables: beliefs on {bel.device} and {device}")
+    if (bel.dtype != torch.float32 or bel.dim() != 2 or bel.shape[0] != comp
             or not bel.is_contiguous()):
-        raise ValueError(f"build_table: belief must be contiguous float32 "
+        raise ValueError(f"build_tables: belief must be contiguous float32 "
                          f"[{comp}, V], got {tuple(bel.shape)} {bel.dtype}")
-    n_var = bel.shape[1]
-    tbl = torch.empty((n_var, width), dtype=torch.float32, device=bel.device)
-    lib = _cuda.library()
-    err = lib.gbp_table_launch(d, bel.data_ptr(), n_var, tbl.data_ptr(),
-                               width, _cuda.stream_ptr(bel))
+
+
+def _launch(cam_bel: torch.Tensor, lmk_bel: torch.Tensor):
+    """One launch of csrc/table.cu for both kinds; a kind with no
+    variables ([comp, 0]) gets no blocks."""
+    device = cam_bel.device
+    if device.type != "cuda":
+        raise ValueError(f"build_tables: unsupported device {device}")
+    out, args = [], []
+    for bel, d in ((cam_bel, 6), (lmk_bel, 3)):
+        _check_belief(bel, d, device)
+        tbl = torch.empty((bel.shape[1], _layout(d)[1]), dtype=torch.float32,
+                          device=device)
+        out.append(tbl)
+        args += [bel.data_ptr(), bel.shape[1], tbl.data_ptr()]
+    err = _cuda.library().gbp_tables_launch(*args, _cuda.stream_ptr(cam_bel))
     _cuda.check(err, "table kernel")
-    build_table.launches += 1
-    return tbl
+    build_tables.launches += 1
+    return tuple(out)
 
 
-build_table.launches = 0
+def build_tables(cam_bel: torch.Tensor, lmk_bel: torch.Tensor,
+                 reference: bool = False):
+    """(cam_tbl [C, 36], lmk_tbl [L, 16]) from the camera belief [27, C]
+    and the landmark belief [9, L]. CPU tensors (or ``reference``) take the
+    plain version, ``build_table_reference`` per kind; CUDA tensors launch
+    csrc/table.cu once for both. One kind alone is built by passing the
+    other with no variables (``bel[:, :0]``)."""
+    if reference or cam_bel.device.type == "cpu":
+        if lmk_bel.device != cam_bel.device:
+            raise ValueError(f"build_tables: beliefs on {cam_bel.device} "
+                             f"and {lmk_bel.device}")
+        return build_table_reference(cam_bel, 6), build_table_reference(
+            lmk_bel, 3)
+    return _launch(cam_bel, lmk_bel)
+
+
+build_tables.launches = 0

@@ -35,13 +35,12 @@ def test_kernels_match_plain_on_card(cuda_device, name):
     g = fg.build_graph(prob, cfg, cuda_device)
     s = gbp.initialise(fg.init_state(prob, cfg, cuda_device), g, cfg)
     s, _ = gbp.run_gbp(s, g, cfg, 20, with_diagnostics=False)
-    for d, bel in ((6, s.cam_bel), (3, s.lmk_bel)):
-        k = table_kernel.build_table(bel, d)
-        r = table_kernel.build_table(bel, d, reference=True)
+    for k, r in zip(table_kernel.build_tables(s.cam_bel, s.lmk_bel),
+                    table_kernel.build_tables(s.cam_bel, s.lmk_bel,
+                                              reference=True)):
         torch.testing.assert_close(k, r, rtol=1e-5, atol=0)
     sk, sr = s.clone(), s.clone()
-    ct = table_kernel.build_table(s.cam_bel, 6, reference=True)
-    lt = table_kernel.build_table(s.lmk_bel, 3, reference=True)
+    ct, lt = table_kernel.build_tables(s.cam_bel, s.lmk_bel, reference=True)
     sweep_kernel.sweep(sk, g, ct, lt, cfg)
     sweep_kernel.sweep(sr, g, ct, lt, cfg, reference=True)
     assert torch.equal(sk.damping_count, sr.damping_count)
@@ -86,8 +85,7 @@ def test_unfused_kernels_match_plain_on_card(cuda_device, name):
     assert torch.equal(sk.damping_count, sr.damping_count)
     assert torch.equal(sk.robust, sr.robust)
     torch.testing.assert_close(sk.pk, sr.pk, rtol=1e-4, atol=1e-4)
-    ct = table_kernel.build_table(s.cam_bel, 6)
-    lt = table_kernel.build_table(s.lmk_bel, 3)
+    ct, lt = table_kernel.build_tables(s.cam_bel, s.lmk_bel)
     sweep_kernel.sweep(s1, g, ct, lt, cfg)
     for f in ("pk", "damping_count", "robust"):
         assert torch.equal(getattr(sk, f), getattr(s1, f)), f
@@ -124,28 +122,65 @@ def test_solve_ba_default_config_on_card(cuda_device):
 
 @pytest.mark.cuda
 def test_sweep_odd_edge_count_on_card(cuda_device):
-    """H1 with ``edge_pad_multiple=1`` and an odd edge count (rows not
-    16-byte aligned, so each lane copies its own column into the stage;
-    the last tile partial): bit-identical to its plain version, and to H4
-    on the same state."""
+    """H1 and H4 with ``edge_pad_multiple=1`` and an odd edge count (rows
+    not 16-byte aligned, so each lane copies its own column into the
+    stage; the last tile partial): each bit-identical to its plain
+    version, and to each other on the same state."""
     prob = balio.synthetic_problem_large(n_keyframes=20, n_points=601,
                                          obs_per_lmk=5, seed=0)
     cfg = GBPConfig(accel_every=0, edge_pad_multiple=1)
     g = fg.build_graph(prob, cfg, cuda_device)
-    assert g.n_edges % 2 == 1
+    assert g.n_edges % 2 == 1 and g.n_edges % 32 != 0
     s = gbp.initialise(fg.init_state(prob, cfg, cuda_device), g, cfg)
     s, _ = gbp.run_gbp(s, g, cfg, 17, with_diagnostics=False)
-    ct = table_kernel.build_table(s.cam_bel, 6)
-    lt = table_kernel.build_table(s.lmk_bel, 3)
-    sk, sr, s4 = s.clone(), s.clone(), s.clone()
+    ct, lt = table_kernel.build_tables(s.cam_bel, s.lmk_bel)
+    bc = reduce_kernel.gather(s.cam_bel, g.cam_idx)
+    bl = reduce_kernel.gather(s.lmk_bel, g.lmk_idx)
+    sk, sr, s4, s4r = s.clone(), s.clone(), s.clone(), s.clone()
     sweep_kernel.sweep(sk, g, ct, lt, cfg)
     sweep_kernel.sweep(sr, g, ct, lt, cfg, reference=True)
-    sweep_kernel.sweep_planes(s4, g, reduce_kernel.gather(s.cam_bel, g.cam_idx),
-                              reduce_kernel.gather(s.lmk_bel, g.lmk_idx), cfg)
-    for other in (sr, s4):
+    sweep_kernel.sweep_planes(s4, g, bc, bl, cfg)
+    sweep_kernel.sweep_planes(s4r, g, bc, bl, cfg, reference=True)
+    for a_state, b_state in ((sk, sr), (sk, s4), (s4, s4r)):
         for f in ("pk", "damping_count", "robust"):
-            a, b = getattr(sk, f), getattr(other, f)
+            a, b = getattr(a_state, f), getattr(b_state, f)
             assert bool(((a == b) | (a != a) & (b != b)).all()), f
+
+
+@pytest.mark.cuda
+def test_build_tables_match_plain_on_card(cuda_device):
+    """H2's one launch for both kinds, at the Ladybug shape's variable
+    counts (1,723 cameras, 156,000 landmarks) on random beliefs with a
+    singular and a NaN column: the belief, flag and pad columns equal to
+    the plain version's, the means within 1e-5 of 1 + |mean|; and equal to
+    the same kernel's launch for one kind, the other given no variables."""
+    rng = np.random.default_rng(0)
+    bels = []
+    for d, n in ((6, 1723), (3, 156000)):
+        a = rng.normal(0, 1, (n, d, d))
+        lam = a @ a.transpose(0, 2, 1) + 0.5 * np.eye(d)
+        packed = np.stack([lam[:, i, j] for i in range(d)
+                           for j in range(i + 1)])
+        bel = np.concatenate([rng.normal(0, 1, (d, n)), packed]).astype(
+            np.float32)
+        bel[d:, 7] = 0.0
+        bel[0, 11] = np.nan
+        bels.append(torch.tensor(bel, device=cuda_device))
+    table_kernel.build_tables.launches = 0
+    tables = table_kernel.build_tables(*bels)
+    assert table_kernel.build_tables.launches == 1
+    plain = table_kernel.build_tables(*bels, reference=True)
+    alone = (table_kernel.build_tables(bels[0], bels[1][:, :0])[0],
+             table_kernel.build_tables(bels[0][:, :0], bels[1])[1])
+    for (bel, d), k, r, a in zip(((bels[0], 6), (bels[1], 3)), tables, plain,
+                                 alone):
+        comp = bel.shape[0]
+        same = (k == r) | (k.isnan() & r.isnan())
+        assert bool(same[:, :comp].all()) and bool(same[:, comp + d:].all())
+        rel = (k[:, comp:comp + d] - r[:, comp:comp + d]).abs() / (
+            1 + r[:, comp:comp + d].abs())
+        assert rel.max().item() <= 1e-5
+        assert torch.equal(k.nan_to_num(), a.nan_to_num())
 
 
 @pytest.mark.cuda

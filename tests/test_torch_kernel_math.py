@@ -1,11 +1,12 @@
-"""The CUDA kernels' per-edge bodies, compiled for the host.
+"""The CUDA kernels' per-edge and per-variable bodies, compiled for the host.
 
 csrc/edge_math.cuh and csrc/planes.cuh hold the whole per-edge body of the
-fused sweep kernel (H1, ``edge_math_tables`` through its shared-memory
-tile accessor ``TileColumn``) and of the unfused one (H4,
-``edge_math_gathered``), csrc/gather.cuh that of the gather (H5),
-csrc/reduce.cuh the run sum and chunk combine of H3's two-pass sum, as
-plain ``__device__`` functions on scalars. With a
+fused sweep kernel (H1, ``edge_math_tables``) and of the unfused one (H4,
+``edge_math_gathered``), both through the shared-memory tile accessor
+``TileColumn``; csrc/table.cuh the per-variable row of the table build
+(H2), csrc/gather.cuh that of the gather (H5), csrc/reduce.cuh the run sum
+and chunk combine of H3's two-pass sum, as plain ``__device__`` functions
+on scalars. With a
 small header that defines the few CUDA names they use, g++ compiles them
 for the CPU; these tests run each body edge by edge (the loop the kernel's
 threads run in parallel) against the plain PyTorch version on the same
@@ -56,41 +57,19 @@ _HOST = r"""
 #include "edge_math.cuh"
 #include "gather.cuh"
 #include "reduce.cuh"
+#include "table.cuh"
 using namespace gbp;
-extern "C" void host_sweep(const SweepParams* p, float* pk, int* dc,
-                           uint8_t* rb, const int* active, const float* meas,
-                           const float* meas_var, const float* intr,
-                           const int* cam_idx, const int* lmk_idx,
-                           const float* cam_tbl, const float* lmk_tbl,
-                           int n) {
-  for (int e = 0; e < n; ++e) {
-    float bc[CAM_WIDTH], bl[LMK_WIDTH], in[3] = {0.f, 0.f, 0.f};
-    for (int i = 0; i < CAM_WIDTH; ++i)
-      bc[i] = cam_tbl[(size_t)cam_idx[e] * CAM_WIDTH + i];
-    for (int i = 0; i < LMK_WIDTH; ++i)
-      bl[i] = lmk_tbl[(size_t)lmk_idx[e] * LMK_WIDTH + i];
-    if (p->flags & F_HAS_INTR)
-      for (int i = 0; i < 3; ++i) in[i] = intr[i * n + e];
-    const EdgeColumn col{pk + e, (long long)n};
-    int count = dc[e];
-    uint8_t robust = rb[e];
-    edge_math_tables(*p, col, count, robust, active[e] > 0, bc, bl, meas[e],
-                     meas[n + e], meas_var[e], in);
-    dc[e] = count;
-    rb[e] = robust;
-  }
-}
-// H1's tile path: each tile's T columns of the packed state copied into a
-// tile buffer [109][T] (the kernel's shared-memory stage), the body run on
-// each column through TileColumn (old values from the tile, new values to
-// the state, the factor rows parked in the tile), the edges of a partial
-// last tile included.
-extern "C" void host_sweep_tiled(const SweepParams* p, float* pk, int* dc,
-                                 uint8_t* rb, const int* active,
-                                 const float* meas, const float* meas_var,
-                                 const float* intr, const int* cam_idx,
-                                 const int* lmk_idx, const float* cam_tbl,
-                                 const float* lmk_tbl, int n, int T) {
+// The sweep kernels' tile path: each tile's T columns of the packed state
+// copied into a tile buffer [109][T] (the kernels' shared-memory stage),
+// the body run on each column through TileColumn (old values from the
+// tile, new values to the state, the factor rows parked in the tile), the
+// edges of a partial last tile included. ``body(e, col, count, robust,
+// in)`` runs one edge: H1's on its table rows (host_sweep_tiled), H4's on
+// its gathered beliefs (host_sweep_planes_tiled). T = n makes the whole
+// state one tile: the in-place path.
+template <class Body>
+void walk(const SweepParams* p, float* pk, int* dc, uint8_t* rb,
+          const float* intr, int n, int T, Body body) {
   std::vector<float> tile((size_t)PACK_ROWS * T);
   for (int e0 = 0; e0 < n; e0 += T) {
     const int m = std::min(T, n - e0);
@@ -99,39 +78,77 @@ extern "C" void host_sweep_tiled(const SweepParams* p, float* pk, int* dc,
         tile[(size_t)r * T + t] = pk[(size_t)r * n + e0 + t];
     for (int t = 0; t < m; ++t) {
       const int e = e0 + t;
-      float bc[CAM_WIDTH], bl[LMK_WIDTH], in[3] = {0.f, 0.f, 0.f};
-      for (int i = 0; i < CAM_WIDTH; ++i)
-        bc[i] = cam_tbl[(size_t)cam_idx[e] * CAM_WIDTH + i];
-      for (int i = 0; i < LMK_WIDTH; ++i)
-        bl[i] = lmk_tbl[(size_t)lmk_idx[e] * LMK_WIDTH + i];
+      float in[3] = {0.f, 0.f, 0.f};
       if (p->flags & F_HAS_INTR)
         for (int i = 0; i < 3; ++i) in[i] = intr[i * n + e];
       const TileColumn col{tile.data() + t, T, pk + e, (long long)n};
       int count = dc[e];
       uint8_t robust = rb[e];
-      edge_math_tables(*p, col, count, robust, active[e] > 0, bc, bl,
-                       meas[e], meas[n + e], meas_var[e], in);
+      body(e, col, count, robust, in);
       dc[e] = count;
       rb[e] = robust;
     }
   }
+}
+extern "C" void host_sweep_tiled(const SweepParams* p, float* pk, int* dc,
+                                 uint8_t* rb, const int* active,
+                                 const float* meas, const float* meas_var,
+                                 const float* intr, const int* cam_idx,
+                                 const int* lmk_idx, const float* cam_tbl,
+                                 const float* lmk_tbl, int n, int T) {
+  walk(p, pk, dc, rb, intr, n, T, [&](int e, const TileColumn& col,
+                                      int& count, uint8_t& robust,
+                                      const float* in) {
+    float bc[CAM_WIDTH], bl[LMK_WIDTH];
+    for (int i = 0; i < CAM_WIDTH; ++i)
+      bc[i] = cam_tbl[(size_t)cam_idx[e] * CAM_WIDTH + i];
+    for (int i = 0; i < LMK_WIDTH; ++i)
+      bl[i] = lmk_tbl[(size_t)lmk_idx[e] * LMK_WIDTH + i];
+    edge_math_tables(*p, col, count, robust, active[e] > 0, bc, bl, meas[e],
+                     meas[n + e], meas_var[e], in);
+  });
+}
+extern "C" void host_sweep(const SweepParams* p, float* pk, int* dc,
+                           uint8_t* rb, const int* active, const float* meas,
+                           const float* meas_var, const float* intr,
+                           const int* cam_idx, const int* lmk_idx,
+                           const float* cam_tbl, const float* lmk_tbl,
+                           int n) {
+  host_sweep_tiled(p, pk, dc, rb, active, meas, meas_var, intr, cam_idx,
+                   lmk_idx, cam_tbl, lmk_tbl, n, n);
+}
+extern "C" void host_sweep_planes_tiled(const SweepParams* p, float* pk,
+                                        int* dc, uint8_t* rb,
+                                        const int* active, const float* meas,
+                                        const float* meas_var,
+                                        const float* intr, const float* bc,
+                                        const float* bl, int n, int T) {
+  walk(p, pk, dc, rb, intr, n, T, [&](int e, const TileColumn& col,
+                                      int& count, uint8_t& robust,
+                                      const float* in) {
+    float b_c[CAM_COMP], b_l[LMK_COMP];
+    for (int i = 0; i < CAM_COMP; ++i) b_c[i] = bc[(size_t)i * n + e];
+    for (int i = 0; i < LMK_COMP; ++i) b_l[i] = bl[(size_t)i * n + e];
+    edge_math_gathered(*p, col, count, robust, active[e] > 0, b_c, b_l,
+                       meas[e], meas[n + e], meas_var[e], in);
+  });
 }
 extern "C" void host_sweep_planes(const SweepParams* p, float* pk, int* dc,
                                   uint8_t* rb, const int* active,
                                   const float* meas, const float* meas_var,
                                   const float* intr, const float* bc,
                                   const float* bl, int n) {
-  for (int e = 0; e < n; ++e) {
-    float in[3] = {0.f, 0.f, 0.f};
-    if (p->flags & F_HAS_INTR)
-      for (int i = 0; i < 3; ++i) in[i] = intr[i * n + e];
-    const EdgeColumn col{pk + e, (long long)n};
-    int count = dc[e];
-    uint8_t robust = rb[e];
-    edge_math_gathered(*p, col, count, robust, active[e] > 0, bc + e, bl + e,
-                       (long long)n, meas[e], meas[n + e], meas_var[e], in);
-    dc[e] = count;
-    rb[e] = robust;
+  host_sweep_planes_tiled(p, pk, dc, rb, active, meas, meas_var, intr, bc,
+                          bl, n, n);
+}
+// H2's per-variable body (table.cuh table_row) for every variable.
+extern "C" void host_table(int d, const float* bel, long long n_var,
+                           float* tbl) {
+  for (long long v = 0; v < n_var; ++v) {
+    if (d == 6)
+      table_row<6, CAM_WIDTH>(bel, n_var, v, tbl + v * CAM_WIDTH);
+    else
+      table_row<3, LMK_WIDTH>(bel, n_var, v, tbl + v * LMK_WIDTH);
   }
 }
 // H3's two passes over a chunk plan: each (component, chunk) gathered into
@@ -196,11 +213,14 @@ def host_lib(tmp_path_factory):
     lib.host_sweep.argtypes = [p] * 12 + [i]
     lib.host_sweep_planes.argtypes = [p] * 10 + [i]
     lib.host_sweep_tiled.argtypes = [p] * 12 + [i, i]
+    lib.host_sweep_planes_tiled.argtypes = [p] * 10 + [i, i]
+    lib.host_table.argtypes = [i, p, ll, p]
     lib.host_gather.argtypes = [p, ll, i, p, p, ll]
     lib.host_reduce_chunks.argtypes = [p, ll, i, p, p, p, p, p, i, i, i, i,
                                        i, p, p]
     for fn in (lib.host_sweep, lib.host_sweep_planes, lib.host_sweep_tiled,
-               lib.host_gather, lib.host_reduce_chunks):
+               lib.host_sweep_planes_tiled, lib.host_table, lib.host_gather,
+               lib.host_reduce_chunks):
         fn.restype = None
     return lib
 
@@ -212,6 +232,8 @@ def _warm_state(name, pad=None):
         "snavely": lambda: balio.synthetic_problem_snavely(pixel_noise=0.5),
         "large": lambda: balio.synthetic_problem_large(
             n_keyframes=20, n_points=1000, obs_per_lmk=7, seed=2),
+        "large odd": lambda: balio.synthetic_problem_large(
+            n_keyframes=20, n_points=1001, obs_per_lmk=7, seed=2),
     }[name]()
     cfg = GBPConfig(accel_every=0)
     if pad is not None:
@@ -239,8 +261,7 @@ def _assert_same_sweep(host, ref, state, cfg):
 @pytest.mark.parametrize("name", ["pinhole", "snavely", "large"])
 def test_host_built_edge_math_matches_plain_sweep(host_lib, name):
     cfg, graph, state = _warm_state(name)
-    ct = table_kernel.build_table(state.cam_bel, 6)
-    lt = table_kernel.build_table(state.lmk_bel, 3)
+    ct, lt = table_kernel.build_tables(state.cam_bel, state.lmk_bel)
     ref, host = state.clone(), state.clone()
     sweep_kernel.sweep(ref, graph, ct, lt, cfg)
     params = sweep_kernel.sweep_params(cfg, graph.k, graph.intr is not None)
@@ -280,8 +301,7 @@ def test_host_built_tile_path_matches_plain_sweep(host_lib, name, pad, tile):
     cfg, graph, state = _warm_state(name, pad)
     if pad == 1:
         assert graph.n_edges % tile != 0
-    ct = table_kernel.build_table(state.cam_bel, 6)
-    lt = table_kernel.build_table(state.lmk_bel, 3)
+    ct, lt = table_kernel.build_tables(state.cam_bel, state.lmk_bel)
     ref, tiled, col = state.clone(), state.clone(), state.clone()
     sweep_kernel.sweep(ref, graph, ct, lt, cfg)
     _host_sweep(host_lib, tiled, graph, cfg, ct, lt, tile)
@@ -320,8 +340,7 @@ def test_host_built_unfused_edge_math_matches_plain(host_lib, name):
     _assert_same_sweep(host, ref, bad, cfg)
 
     fused, unfused = state.clone(), state.clone()
-    ct = table_kernel.build_table(state.cam_bel, 6)
-    lt = table_kernel.build_table(state.lmk_bel, 3)
+    ct, lt = table_kernel.build_tables(state.cam_bel, state.lmk_bel)
     params = sweep_kernel.sweep_params(cfg, graph.k, graph.intr is not None)
     host_lib.host_sweep(
         ctypes.addressof(params), fused.pk.data_ptr(),
@@ -335,6 +354,79 @@ def test_host_built_unfused_edge_math_matches_plain(host_lib, name):
                        reduce_kernel.gather(state.lmk_bel, graph.lmk_idx))
     for f in ("pk", "damping_count", "robust"):
         assert torch.equal(getattr(fused, f), getattr(unfused, f)), f
+
+
+def _host_table(host_lib, bel, d):
+    out = torch.empty((bel.shape[1], table_kernel.CAM_WIDTH if d == 6
+                       else table_kernel.LMK_WIDTH))
+    host_lib.host_table(d, bel.data_ptr(), bel.shape[1], out.data_ptr())
+    return out
+
+
+@pytest.mark.parametrize("name,pad,tile", [
+    ("pinhole", None, 32), ("snavely", None, 32), ("pinhole", 1, 32),
+    ("snavely", 1, 7), ("large odd", 1, 32)])
+def test_host_built_unfused_tile_path_matches_plain(host_lib, name, pad,
+                                                    tile):
+    """H4's tile path (``edge_math_gathered`` through ``TileColumn`` on a
+    tile buffer [109][T]) against the plain unfused sweep, and against H1's
+    tile path on the tables to the bit; ``pad=1`` leaves an edge count that
+    is not a multiple of the tile (odd for "large odd"), so the last tile
+    is partial."""
+    cfg, graph, state = _warm_state(name, pad)
+    if pad == 1:
+        assert graph.n_edges % tile != 0
+    if name == "large odd":
+        assert graph.n_edges % 2 == 1
+    bc = reduce_kernel.gather(state.cam_bel, graph.cam_idx)
+    bl = reduce_kernel.gather(state.lmk_bel, graph.lmk_idx)
+    ref, tiled, fused = state.clone(), state.clone(), state.clone()
+    sweep_kernel.sweep_planes(ref, graph, bc, bl, cfg)
+    params = sweep_kernel.sweep_params(cfg, graph.k, graph.intr is not None)
+    host_lib.host_sweep_planes_tiled(
+        ctypes.addressof(params), tiled.pk.data_ptr(),
+        tiled.damping_count.data_ptr(), tiled.robust.data_ptr(),
+        tiled.active.data_ptr(), graph.meas.data_ptr(),
+        graph.meas_var.data_ptr(), _cuda.ptr(graph.intr), bc.data_ptr(),
+        bl.data_ptr(), graph.n_edges, tile)
+    _assert_same_sweep(tiled, ref, state, cfg)
+    # the tables' means by the same host build of belief_mean (the plain
+    # table build's CPU sqrt rounds differently)
+    ct, lt = (_host_table(host_lib, bel, d)
+              for bel, d in ((state.cam_bel, 6), (state.lmk_bel, 3)))
+    _host_sweep(host_lib, fused, graph, cfg, ct, lt, tile)
+    for f in ("pk", "damping_count", "robust"):
+        assert torch.equal(getattr(tiled, f), getattr(fused, f)), f
+
+
+@pytest.mark.parametrize("d", [6, 3])
+def test_host_built_table_row_matches_plain(host_lib, d):
+    """H2's per-variable body (csrc/table.cuh ``table_row``) against the
+    plain table build on random beliefs with a zero Lambda and a NaN eta: the
+    belief, flag and pad columns equal, the means within 1e-4 of
+    1 + |mean| (the host's sqrt and divide against PyTorch's CPU ones)."""
+    rng = np.random.default_rng(7 + d)
+    n = 500
+    a = rng.normal(0, 1, (n, d, d))
+    lam = a @ a.transpose(0, 2, 1) + 0.5 * np.eye(d)
+    packed = np.stack([lam[:, i, j] for i in range(d) for j in range(i + 1)])
+    bel = np.concatenate([rng.normal(0, 1, (d, n)), packed]).astype(
+        np.float32)
+    bel[d:, 7] = 0.0                          # singular -> invalid
+    bel[0, 11] = np.nan                       # poisoned -> invalid
+    bel = torch.tensor(bel)
+    comp = bel.shape[0]
+    ref = table_kernel.build_table_reference(bel, d)
+    out = _host_table(host_lib, bel, d)
+    same = (out == ref) | (out.isnan() & ref.isnan())
+    assert bool(same[:, :comp].all()) and bool(same[:, comp + d:].all())
+    # the NaN row is invalid; the singular one too where its mean overflows
+    # (landmarks: a zero determinant; the cameras' Cholesky clamps its
+    # pivots and stays finite)
+    assert not ref[11, comp + d] and bool(ref[7, comp + d]) == (d == 6)
+    assert int(ref[:, comp + d].sum()) == n - (1 if d == 6 else 2)
+    mu, mu_ref = out[:, comp:comp + d], ref[:, comp:comp + d]
+    assert bool(((mu - mu_ref).abs() <= RTOL * (1 + mu_ref.abs())).all())
 
 
 @pytest.mark.parametrize("kind", ["cam", "lmk"])

@@ -75,7 +75,7 @@ def test_lmk_table_matches_build_lmk_table():
     tbl_j, _ = build_lmk_table(jnp.asarray(eta), jnp.asarray(lam), rows,
                                interpret=True)
     tbl_j = np.asarray(tbl_j)[:l, :table_kernel.LMK_WIDTH]
-    tbl_t = table_kernel.build_table(
+    tbl_t = table_kernel.build_table_reference(
         torch.tensor(np.concatenate([eta, lam])), 3).numpy()
     assert tbl_t.shape == (l, table_kernel.LMK_WIDTH)
     np.testing.assert_array_equal(tbl_t[:, :9], tbl_j[:, :9])
@@ -107,7 +107,7 @@ def test_cam_table_matches_jax_means():
                                        jpl.unpack_vec(jnp.asarray(eta), 6)))
     ok = np.asarray(jnp.all(jnp.isfinite(mu), axis=0))
     mu = np.where(ok, np.asarray(mu), 0.0)
-    tbl = table_kernel.build_table(
+    tbl = table_kernel.build_table_reference(
         torch.tensor(np.concatenate([eta, lam])), 6).numpy()
     np.testing.assert_array_equal(tbl[:, :27], np.concatenate([eta, lam]).T)
     np.testing.assert_array_equal(tbl[:, 33], ok.astype(np.float32))
@@ -115,6 +115,28 @@ def test_cam_table_matches_jax_means():
     assert not tbl[:, 34:].any()
     np.testing.assert_allclose(tbl[:, 27:33], mu.T, rtol=1e-4,
                                atol=1e-4 * np.abs(mu).max())
+
+
+def test_build_tables_is_the_table_build_per_kind(large):
+    """``build_tables`` (one launch for both kinds on a card) gives on the
+    CPU exactly ``build_table_reference`` of each kind, as it does for one
+    kind with the other given no variables; ``_sanitized_means`` reads the
+    means and the zeroing from it."""
+    prob, g = large
+    cfg = GBPConfig(accel_every=0)
+    s = gbp.initialise(fg.init_state(prob, cfg, "cpu"), g, cfg)
+    s.lmk_bel[:, 3] = float("nan")
+    ct, lt = table_kernel.build_tables(s.cam_bel, s.lmk_bel)
+    assert torch.equal(ct, table_kernel.build_table_reference(s.cam_bel, 6))
+    assert torch.equal(lt.nan_to_num(), table_kernel.build_table_reference(
+        s.lmk_bel, 3).nan_to_num())
+    ct_alone, lt_none = table_kernel.build_tables(s.cam_bel, s.lmk_bel[:, :0])
+    assert torch.equal(ct, ct_alone) and lt_none.shape == (0, 16)
+    assert lt[3, 12] == 0 and not lt[3, 9:12].any()
+    cam_mu, lmk_mu = gbp._sanitized_means(s, cfg)
+    assert torch.equal(cam_mu, ct[:, 27:33].T)
+    assert torch.equal(lmk_mu, lt[:, 9:12].T)
+    assert table_kernel.build_tables.launches == 0      # CPU: plain version
 
 
 def test_wrappers_dispatch_by_device(large):
@@ -125,16 +147,20 @@ def test_wrappers_dispatch_by_device(large):
     cfg = GBPConfig(accel_every=0)
     s = gbp.initialise(fg.init_state(prob, cfg, "cpu"), g, cfg)
     ref = s.clone()
-    for fn in (sweep_kernel.sweep, table_kernel.build_table,
+    for fn in (sweep_kernel.sweep, table_kernel.build_tables,
                reduce_kernel.segment_sum):
         fn.launches = 0
     gbp.gbp_sweep(s, g, cfg)
     gbp.gbp_sweep(ref, g, GBPConfig(accel_every=0, kernels="reference"))
     assert torch.equal(s.pk, ref.pk) and torch.equal(s.cam_bel, ref.cam_bel)
-    assert (sweep_kernel.sweep.launches, table_kernel.build_table.launches,
+    assert (sweep_kernel.sweep.launches, table_kernel.build_tables.launches,
             reduce_kernel.segment_sum.launches) == (0, 0, 0)
     meta = torch.empty((9, 5), device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
-        table_kernel.build_table(meta, 3)
+        table_kernel.build_tables(torch.empty((27, 0), device="meta"), meta)
+    with pytest.raises(ValueError, match="unsupported device"):
+        table_kernel.build_tables(torch.empty((27, 4), device="meta"), meta)
+    with pytest.raises(ValueError, match="beliefs on"):
+        table_kernel.build_tables(s.cam_bel, meta)
     with pytest.raises(ValueError, match="kernels"):
         GBPConfig(kernels="triton")
