@@ -60,7 +60,22 @@ the final ``ok`` line:
      whose lines the resumed ones must equal; launch counts per run;
   11. the driver's polish (15 warm-started LM/Schur iterations) at the
      Venice shape from the means phase 6 left: per-iteration cost and
-     decision, ms per LM iteration, peak device memory.
+     decision, ms per LM iteration, peak device memory;
+  12. incremental SLAM at the TUM fr1desk shape (synthetic_problem_large(
+     62, 1900, 7): 13,300 edges, 13,312 padded) with the slam driver's
+     config (relinearise every sweep, the one-sided depth guard, the
+     rescue after 300 sweeps), 700 sweeps per keyframe: (a) 7 segments
+     with diagnostics, the error at each insertion, the first 3 against
+     kernels="reference"; (b) one sweep right after an insertion, H1 and
+     H4 bit-identical to their plain versions and to each other under the
+     gn flags; (c) the driver's checkpoint at keyframe 6 resumed with
+     start_kf, its diagnostics equal to (a)'s to the bit; (d) all 62
+     keyframes without diagnostics: sweeps/s including insertion, the
+     final error (< 3.0 px) beside the JAX package's, ms/sweep with and
+     without diagnostics; (e) the slam driver in process at 150 sweeps per
+     keyframe with --polish, --save_traj and --checkpoint, its resume from
+     the final checkpoint to the same trajectory, steady-state sweeps/s
+     with diagnostics and the same solve's without.
 
 The last lines are one JSON object of per-kernel results (launches on
 the main paths, largest difference from the plain version, kernel, plain
@@ -110,6 +125,21 @@ COARSE_SWEEPS = 400
 DRIVER_SWEEPS = (600, 1000)      # run 1, then resumed / uninterrupted
 CHECKPOINT_EVERY = 200
 POLISH_ITERS = 15
+
+# incremental SLAM (phase 12) at the TUM fr1desk shape: 62 keyframes and
+# about 13.3k edges, keyframe-local visibility; the slam driver's config
+# and its cadence of 700 sweeps per keyframe
+SLAM_SHAPE = (62, 1900, 7)
+SLAM_IBK = 700
+SLAM_SEGMENTS = 7          # (a): keyframes 0..7; the checkpoint at kf 6
+SLAM_REF_SEGMENTS = 3      # (a): the plain versions, about 12 ms a sweep
+SLAM_CKPT_KF = 6
+SLAM_DRIVER_IBK = 150      # (e): the driver, 150 sweeps per keyframe
+SLAM_TIMED = 200
+# the JAX package's final error at SLAM_SHAPE, 700 sweeps per keyframe,
+# landmarks perturbed by LMK_NOISE, on a CPU (scripts/
+# slam_reference_error.py): for information, not a bound
+JAX_SLAM_FINAL_ERR = 0.813590
 
 
 # The card's peaks (H100 SXM, NVIDIA's data sheet): HBM3 bytes/s and
@@ -601,6 +631,274 @@ def lm_phase(prob, means, cfg, dev, reset_counts, read_counts, card):
           "LM: the cost rose")
     check(launches["reduce"] > 0, "LM did not go through H3")
     return launches
+
+
+def slam_phase(dev, reset_counts, read_counts, card, compare_sweeps):
+    """Phase 12: incremental SLAM at the TUM fr1desk shape with the slam
+    driver's config: (a) SLAM_SEGMENTS segments of SLAM_IBK sweeps with
+    diagnostics, kernels against kernels="reference" on the first
+    SLAM_REF_SEGMENTS; (b) one sweep right after an insertion, H1 and H4
+    against their plain versions and each other, to the bit; (c) a
+    checkpoint through the driver's save path at keyframe SLAM_CKPT_KF,
+    resumed with start_kf: the diagnostics of the resumed segments equal
+    (a)'s to the bit; (d) all 62 keyframes without diagnostics, sweeps/s
+    including insertion and the final error, then ms/sweep with and
+    without diagnostics; (e) the slam driver in process at SLAM_DRIVER_IBK
+    sweeps per keyframe with --polish, --save_traj and --checkpoint, its
+    resume from the final checkpoint (the same trajectory), and the same
+    run without diagnostics. Returns (launch counts of the main paths,
+    largest H1 and H4 difference from plain)."""
+    import tempfile
+
+    import torch
+
+    from gbp_poplar_tpu_torch.config import InitConfig
+    from gbp_poplar_tpu_torch.core import build_graph, gbp, init_state, slam
+    from gbp_poplar_tpu_torch.drivers import slam as slam_driver
+    from gbp_poplar_tpu_torch.utils import balio, evaluation, flags, priors
+
+    cfg, _ = slam_driver.config_from_args(
+        slam_driver.build_parser().parse_args(["--bal_file", "-"]))
+    raw = balio.synthetic_problem_large(*SLAM_SHAPE)
+    # the generator's consistency: the oracle at the true means is about
+    # 1.25 x the pixel noise (0.5 px)
+    err_true, _ = evaluation.numpy_reprojection_error(raw.cam_means,
+                                                      raw.lmk_means, raw)
+    print(f"[slam] TUM fr1desk shape: synthetic_problem_large{SLAM_SHAPE}, "
+          f"{raw.n_keyframes} keyframes, {raw.n_points} landmarks, "
+          f"{raw.n_edges} edges; host oracle at the true means "
+          f"{err_true:.5f} px (1.25 x 0.5 = 0.625 expected)")
+    check(abs(err_true / 0.625 - 1.0) < 0.1, "SLAM shape: generator broken")
+    prob = priors.apply_init_noise(raw, InitConfig(lmk_noise=LMK_NOISE,
+                                                   seed=0))
+    graph = build_graph(prob, cfg, dev)
+    print(f"[slam] {graph.n_edges} padded edges; config: relin_every_iter="
+          f"{cfg.relin_every_iter}, eta_damping {cfg.eta_damping}, "
+          f"relin_behind_camera={cfg.relin_behind_camera}, rescue after "
+          f"{cfg.behind_camera_rescue_iters} sweeps, accelerator every "
+          f"{cfg.accel_every} sweeps from {cfg.accel_start}")
+
+    def run(c, n_kf, ibk=SLAM_IBK, diags=True, problem=prob, g=graph,
+            **kw):
+        """solve_slam from a fresh SLAM state, timed (s), recording the
+        accelerator's steps."""
+        log = []
+
+        def runner(s):
+            return gbp.run_gbp(s, g, c, ibk, with_diagnostics=diags,
+                               accel_log=log)
+
+        state = init_state(problem, c, dev,
+                           flags=flags.create_flags(problem, c.steps))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = slam.solve_slam(state, g, c, n_keyframes=n_kf,
+                              iters_between_kfs=ibk, with_diagnostics=diags,
+                              runner=runner, **kw)
+        torch.cuda.synchronize()
+        return res, log, time.perf_counter() - t0
+
+    with tempfile.TemporaryDirectory() as tmp:
+        return _slam_parts(run, tmp, raw, prob, graph, cfg, dev,
+                           reset_counts, read_counts, card, compare_sweeps)
+
+
+def _slam_parts(run, tmp, raw, prob, graph, cfg, dev, reset_counts,
+                read_counts, card, compare_sweeps):
+    """Phase 12's parts (a)-(e) (see slam_phase), files under ``tmp``."""
+    import contextlib
+    import io
+    import os
+    import re
+
+    import numpy as np
+    import torch
+
+    from gbp_poplar_tpu_torch.config import InitConfig
+    from gbp_poplar_tpu_torch.core import build_graph, gbp, slam
+    from gbp_poplar_tpu_torch.drivers import common
+    from gbp_poplar_tpu_torch.drivers import slam as slam_driver
+    from gbp_poplar_tpu_torch.ops import planes, reduce_kernel, sweep_kernel
+    from gbp_poplar_tpu_torch.ops import table_kernel
+    from gbp_poplar_tpu_torch.utils import balio, checkpoint, priors
+
+    n_sweeps_all = (prob.n_keyframes - 1) * SLAM_IBK
+    # (a) kernels against kernels="reference", the error at each insertion
+    ckpt = os.path.join(tmp, "slam.npz")
+    kept = {}
+
+    def keep(k, st):
+        if k == 2:
+            kept["state"] = st.clone()       # right after keyframe 3's
+        if k + 1 == SLAM_CKPT_KF:
+            slam_driver.save_segment(ckpt, st, graph, cfg, k, SLAM_IBK)
+
+    def progress(k, diag):
+        print(f"[slam]   segment {k} (keyframes 0-{k}): error "
+              f"{diag.reproj_err[0].item():.4f} -> "
+              f"{diag.reproj_err[-1].item():.4f} px"
+              + (f"; keyframe {k + 1} inserted" if k + 1 < SLAM_SEGMENTS + 1
+                 else ""))
+
+    reset_counts()
+    res_k, log_k, wall_k = run(cfg, SLAM_SEGMENTS + 1, progress=progress,
+                               segment_callback=keep)
+    launches_a = read_counts()
+    n_a = SLAM_SEGMENTS * SLAM_IBK
+    live = sum(st.gain.item() > 0 and bool(st.accepted) for _, st in log_k)
+    print(f"[slam] (a) kernels: {SLAM_SEGMENTS} segments of {SLAM_IBK} "
+          f"sweeps with diagnostics in {wall_k:.1f} s ({n_a / wall_k:.1f} "
+          f"sweeps/s); {len(log_k)} accelerator steps, {live} jumps "
+          f"applied; launches {launches_a}")
+    check(bool(np.isfinite(res_k.reproj_err).all()), "SLAM: non-finite error")
+    check(len(log_k) > 0, "SLAM: no live accelerator step")
+    check(launches_a["sweep"] == n_a and launches_a["table"] >= n_a
+          and launches_a["reduce"] >= 2 * n_a,
+          "SLAM (a) did not go through H1, H2, H3 every sweep")
+    res_r, _, wall_r = run(dataclasses.replace(cfg, kernels="reference"),
+                           SLAM_REF_SEGMENTS + 1)
+    for seg in range(SLAM_REF_SEGMENTS):
+        agree(f"[slam] (a) segment {seg + 1}", res_k.reproj_err[seg],
+              res_r.reproj_err[seg])
+    print(f"[slam] (a) reference: {SLAM_REF_SEGMENTS} segments in "
+          f"{wall_r:.1f} s")
+
+    # (b) one sweep under the gn flags right after an insertion
+    st = kept.pop("state")
+    ct, lt = table_kernel.build_tables(st.cam_bel, st.lmk_bel, reference=True)
+    bc = reduce_kernel.gather(st.cam_bel, graph.cam_idx, reference=True)
+    bl = reduce_kernel.gather(st.lmk_bel, graph.lmk_idx, reference=True)
+    s1, s1r, s4, s4r = st.clone(), st.clone(), st.clone(), st.clone()
+    sweep_kernel.sweep(s1, graph, ct, lt, cfg)
+    sweep_kernel.sweep(s1r, graph, ct, lt, cfg, reference=True)
+    sweep_kernel.sweep_planes(s4, graph, bc, bl, cfg)
+    sweep_kernel.sweep_planes(s4r, graph, bc, bl, cfg, reference=True)
+    label = "SLAM, after keyframe 3's insertion, gn flags"
+    h1_err = compare_sweeps("H1", label, graph, s1, s1r, "plain")
+    h4_err = compare_sweeps("H4", label, graph, s4, s4r, "plain")
+    y_cf, _ = planes.w2c_apply(list(s1r.mu[:6]), list(s1r.mu[6:]))
+    act = st.active > 0
+    behind = act & (y_cf[2] < -cfg.min_depth)
+    settled = s1r.damping_count > cfg.behind_camera_rescue_iters
+    relin = (s1r.lin_mu != st.lin_mu).any(dim=0)
+    print(f"[slam] (b) {int(act.sum())} active edges, linearisation point "
+          f"moved on {int(relin.sum())}, {int(behind.sum())} behind a camera "
+          f"({int((behind & settled).sum())} settled); damping switched on "
+          f"at {int((act & (st.damping_count == 0)).sum())}")
+    for a, b, what in ((s1, s1r, "H1 and plain"), (s4, s4r, "H4 and plain"),
+                       (s4, s1, "H4 and H1")):
+        bits = all(same(getattr(a, f).float(), getattr(b, f).float())
+                   for f in ("pk", "damping_count", "robust"))
+        print(f"[slam] (b) {what} bit-identical: {bits}")
+        check(bits, f"SLAM (b): {what} differ under the gn flags")
+    del st, s1, s1r, s4, s4r, bc, bl, ct, lt
+
+    # (c) the resume by keyframe from the driver's checkpoint
+    state_c, g2, meta = checkpoint.load_checkpoint(ckpt, dev)
+    graph_c = common.resume_graph(graph, g2)
+    check(graph_c is graph and meta["kf"] == SLAM_CKPT_KF
+          and meta["devices"] == 1, "SLAM (c): checkpoint metadata or graph")
+    reset_counts()
+    res_c = slam.solve_slam(state_c, graph_c, cfg, n_keyframes=SLAM_SEGMENTS
+                            + 1, iters_between_kfs=SLAM_IBK,
+                            start_kf=meta["kf"])
+    launches_c = read_counts()
+    n_c = SLAM_SEGMENTS + 1 - SLAM_CKPT_KF
+    bits = all(np.array_equal(getattr(res_c, f),
+                              getattr(res_k, f)[SLAM_CKPT_KF - 1:],
+                              equal_nan=True)
+               for f in ("reproj_err", "cost", "n_relins", "n_robust"))
+    print(f"[slam] (c) resumed at keyframe {meta['kf']}: {n_c} segments, "
+          f"diagnostics equal to the uninterrupted run's: {bits}; launches "
+          f"{launches_c}")
+    check(res_c.reproj_err.shape == (n_c, SLAM_IBK) and bits,
+          "SLAM (c): the resume by keyframe is not bit-exact")
+    del res_k, res_r, res_c, state_c
+
+    # (d) the full sequence without diagnostics, insertion included
+    reset_counts()
+    res_d, log_d, wall_d = run(cfg, None, diags=False)
+    launches_d = read_counts()
+    err_d = gbp.reprojection_error(res_d.state, graph)[0].item()
+    print(f"[slam] (d) {prob.n_keyframes} keyframes x {SLAM_IBK} sweeps: "
+          f"{wall_d:.2f} s, {n_sweeps_all / wall_d:.1f} sweeps/s incl. "
+          f"insertion; final error {err_d:.6f} px (guard < 3.0; the JAX "
+          f"package at this shape and cadence on a CPU: "
+          f"{JAX_SLAM_FINAL_ERR} px, scripts/slam_reference_error.py); "
+          f"{len(log_d)} accelerator steps; launches {launches_d} ({card})")
+    check(np.isfinite(err_d) and err_d < 3.0, "SLAM (d): final error guard")
+    check(launches_d["sweep"] == n_sweeps_all
+          and launches_d["table"] >= n_sweeps_all
+          and launches_d["reduce"] >= 2 * n_sweeps_all
+          and launches_d["sweep_planes"] == 0 and launches_d["gather"] == 0,
+          "SLAM (d) did not go through H1, H2, H3 every sweep")
+    # the sweep alone (accelerator off), with and without diagnostics
+    s, c0 = res_d.state, dataclasses.replace(cfg, accel_every=0)
+    rates = {}
+    for diags in (False, True):
+        gbp.run_gbp(s, graph, c0, 2, with_diagnostics=diags,
+                    iter_offset=2 * c0.steps)
+        rates[diags] = cuda_ms(lambda: gbp.run_gbp(
+            s, graph, c0, SLAM_TIMED, with_diagnostics=diags,
+            iter_offset=2 * c0.steps), 1) / SLAM_TIMED
+    print(f"[slam] (d) anneal-free sweeps on the full graph, accelerator "
+          f"off: {rates[False]:.4f} ms/sweep without diagnostics, "
+          f"{rates[True]:.4f} with per-sweep diagnostics ({card})")
+    del res_d, s
+
+    # (e) the slam driver in process, and its resume from the final
+    # checkpoint
+    bal, traj = os.path.join(tmp, "fr1desk.txt"), os.path.join(tmp, "t.txt")
+    balio.save_bal(bal, raw)
+    base = ["--bal_file", bal, "--ltn", str(LMK_NOISE),
+            "--iters_between_kfs", str(SLAM_DRIVER_IBK), "--polish"]
+
+    def drive(*argv):
+        out, err = io.StringIO(), io.StringIO()
+        reset_counts()
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+            rc = slam_driver.main(base + list(argv))
+        counts = read_counts()
+        lines = [ln for ln in out.getvalue().splitlines()
+                 if ln.startswith("iter")]
+        err = err.getvalue()
+        for ln in err.splitlines():
+            if not ln.startswith("-- keyframe"):
+                print(f"[slam]   {ln}")
+        print(f"[slam]   exit {rc}, {len(lines)} iteration lines, "
+              f"{len(re.findall('inserted', err))} insertions; launches "
+              f"{counts}")
+        check(rc == 0, "slam driver failed")
+        return lines, err, counts
+
+    n_e = (raw.n_keyframes - 1) * SLAM_DRIVER_IBK
+    lines1, err1, launches_e = drive("--save_traj", traj, "--checkpoint",
+                                     ckpt)
+    check(len(lines1) == n_e and launches_e["sweep"] == n_e
+          and launches_e["table"] >= n_e and launches_e["reduce"] >= 2 * n_e,
+          "slam driver did not go through H1, H2, H3 every sweep")
+    with open(traj) as f:
+        traj1 = f.read()
+    _, err2, _ = drive("--save_traj", traj, "--resume", ckpt)
+    with open(traj) as f:
+        same_traj = f.read() == traj1
+    steady = float(err1.split("steady-state ")[1].split()[0])
+    # the driver's problem (the BAL file's rounding, the same noise)
+    prob_e = priors.apply_init_noise(
+        balio.load_bal(bal), InitConfig(lmk_noise=LMK_NOISE, seed=0))
+    res_e, _, wall_e = run(cfg, None, ibk=SLAM_DRIVER_IBK, diags=False,
+                           problem=prob_e,
+                           g=build_graph(prob_e, cfg, dev))
+    print(f"[slam] (e) driver: resumed from the final checkpoint "
+          f"(keyframe {raw.n_keyframes}), the same trajectory: {same_traj}; "
+          f"steady state {steady} sweeps/s with per-sweep diagnostics; "
+          f"the same solve without diagnostics {n_e / wall_e:.1f} sweeps/s "
+          f"({card})")
+    check(same_traj and f"at keyframe {raw.n_keyframes}" in err2,
+          "slam driver: resumed trajectory differs")
+    del res_e
+    return ([launches_a, launches_c, launches_d, launches_e],
+            h1_err, h4_err)
 
 
 def main() -> int:
@@ -1142,6 +1440,9 @@ def main() -> int:
     del raw_l, prob_l
     launches_lm = lm_phase(prob_v, venice_means, cfg_u, dev, reset_counts,
                            read_counts, card)
+    launches_s, h1_slam, h4_slam = slam_phase(dev, reset_counts, read_counts,
+                                              card, compare_sweeps)
+    h1_err, h4_err = max(h1_err, h1_slam), max(h4_err, h4_slam)
 
     replaces = {
         "sweep": ("gbp_poplar_tpu_torch/csrc/sweep.cu",
@@ -1156,7 +1457,8 @@ def main() -> int:
                    "gbp_poplar_tpu/ops/reduce_kernel.py:439", h5_err),
     }
     launches = {k: sum(run[k] for run in (launches_l, launches_v, launches_c,
-                                          launches_d, launches_lm))
+                                          launches_d, launches_lm,
+                                          *launches_s))
                 for k in replaces}
     check(all(n > 0 for n in launches.values()),
           "a kernel was never launched by the main paths")

@@ -8,11 +8,13 @@ tests/test_torch_*.py. This package never imports JAX.
 
 Ported so far: the batch GBP bundle-adjustment solve with the fixed-point
 accelerator and the coarse corrector, on the fused and the unfused sweep
-pipeline; the Levenberg-Marquardt/Schur oracle (core/gauss_newton.py) and
+pipeline; incremental SLAM (core/slam.py: keyframe insertion, resume by
+keyframe); the Levenberg-Marquardt/Schur oracle (core/gauss_newton.py) and
 the intrinsics refit; checkpoints in the JAX package's format; trajectory
-evaluation; and the ``ba`` command line with the JAX driver's flags and
-defaults (``python -m gbp_poplar_tpu_torch.drivers.ba``). Not yet: SLAM,
-sharding over several devices. ROADMAP.md lists what remains.
+evaluation; and the ``ba`` and ``slam`` command lines with the JAX
+drivers' flags and defaults (``python -m gbp_poplar_tpu_torch.drivers.ba``,
+``... .drivers.slam``). Not yet: sharding over several devices.
+ROADMAP.md lists what remains.
 """
 
 import torch
@@ -50,3 +52,29 @@ def solve_ba(problem, cfg: GBPConfig | None = None, n_iters: int = 1000,
     final, diag = gbp.solve(state, graph, cfg, n_iters=n_iters)
     cam_mu, lmk_mu = analysis.belief_means(final)
     return cam_mu, lmk_mu, diag.reproj_err.cpu().numpy()
+
+
+def solve_slam(problem, cfg: GBPConfig | None = None,
+               iters_between_kfs: int = 700, av_depth: float = 1.0,
+               device: torch.device | str = "cuda"):
+    """One-call incremental SLAM (keyframe at a time) on ``device``.
+
+    Returns (cam_means [C,6], lmk_means [L,3], per-segment reprojection
+    error [n_keyframes-1, iters_between_kfs]) as NumPy arrays. ``cfg``
+    defaults to the JAX package's: ``GBPConfig()`` with drift
+    relinearisation and Lambda damping."""
+    import dataclasses
+
+    from .core import build_graph, init_state, slam
+    from .utils import analysis, flags as flags_lib
+
+    cfg = cfg or dataclasses.replace(
+        GBPConfig(), relin_drift_threshold=0.05, lambda_damping=True)
+    graph = build_graph(problem, cfg, device)
+    flags = flags_lib.create_flags(problem, cfg.steps)
+    state = init_state(problem, cfg, device, flags=flags)
+    result = slam.solve_slam(state, graph, cfg,
+                             iters_between_kfs=iters_between_kfs,
+                             av_depth=av_depth)
+    cam_mu, lmk_mu = analysis.belief_means(result.state)
+    return cam_mu, lmk_mu, result.reproj_err

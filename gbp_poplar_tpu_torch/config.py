@@ -2,7 +2,10 @@
 
 The algorithm fields are those of ``gbp_poplar_tpu.config.GBPConfig`` and
 ``InitConfig``, with the same names, defaults and meaning (see that module
-for the reference citations and the reasoning behind each default). The
+for the reference citations and the reasoning behind each default), for
+the batch solve and for incremental SLAM alike (``iters_between_kfs``,
+and the depth guard's ``relin_behind_camera`` and
+``behind_camera_rescue_iters``, which the slam driver sets). The
 JAX package's execution knobs (``use_pallas``, ``pallas_*``,
 ``table_carry``) describe TPU kernel variants; here they are replaced by
 two: ``kernels`` (CUDA kernels or plain versions) and ``fused`` (the
@@ -48,7 +51,7 @@ class GBPConfig:
 
     # --- solver loop ---
     n_iters: int = 1500
-    iters_between_kfs: int = 700       # SLAM only (not ported yet)
+    iters_between_kfs: int = 700       # SLAM: sweeps per keyframe segment
 
     # --- fixed-point acceleration and coarse correction ---
     # Every accel_every anneal-free sweeps the belief means are extrapolated

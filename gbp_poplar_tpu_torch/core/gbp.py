@@ -89,23 +89,24 @@ def update_beliefs(state: GBPState, graph: GBPGraph,
 
 def _linearise_planes(state: GBPState, graph: GBPGraph, cfg: GBPConfig):
     """Relinearise every factor at the current belief means. Returns
-    (packed potentials..., robust [E], mu [9, E])."""
+    (packed potentials..., robust [E], mu [9, E], z [E]), z the landmark's
+    depth in the camera frame (for the depth guards)."""
     cam_mu, lmk_mu = _variable_means(state)
     mu_c = cam_mu.index_select(1, graph.cam_idx)
     mu_l = lmk_mu.index_select(1, graph.lmk_idx)
-    eta_c, eta_l, lam_cc, lam_cl, lam_ll, robust, _ = pl.linearise(
+    eta_c, eta_l, lam_cc, lam_cl, lam_ll, robust, y_cf = pl.linearise(
         pl.unpack_vec(mu_c, 6), pl.unpack_vec(mu_l, 3), graph.k,
         graph.meas[0], graph.meas[1], graph.meas_var, cfg.huber_nstds,
         None if graph.intr is None else pl.unpack_vec(graph.intr, 3))
     return (pl.pack_vec(eta_c), pl.pack_vec(eta_l), pl.pack_sym(lam_cc, 6),
             pl.pack_full(lam_cl), pl.pack_sym(lam_ll, 3), robust,
-            torch.cat([mu_c, mu_l]))
+            torch.cat([mu_c, mu_l]), y_cf[2])
 
 
 def linearise_all(state: GBPState, graph: GBPGraph,
                   cfg: GBPConfig) -> GBPState:
     """Unconditionally relinearise every factor at the current means."""
-    f_eta_c, f_eta_l, f_lam_cc, f_lam_cl, f_lam_ll, robust, mu = (
+    f_eta_c, f_eta_l, f_lam_cc, f_lam_cl, f_lam_ll, robust, mu, _ = (
         _linearise_planes(state, graph, cfg))
     state.f_eta_c.copy_(f_eta_c)
     state.f_eta_l.copy_(f_eta_l)
@@ -114,6 +115,29 @@ def linearise_all(state: GBPState, graph: GBPGraph,
     state.f_lam_ll.copy_(f_lam_ll)
     state.lin_mu.copy_(mu)
     state.robust.copy_(robust)
+    return state
+
+
+def relinearise_masked(state: GBPState, graph: GBPGraph, cfg: GBPConfig,
+                       mask: torch.Tensor) -> GBPState:
+    """Relinearise only the edges in ``mask`` [E] at the current belief
+    means, in place (SLAM keyframe insertion). An edge whose adjacent mean
+    is not finite keeps its factor, and so does one the sweep's depth guard
+    would refuse, with the sweep's sidedness: |z| > min_depth with
+    ``relin_behind_camera``, else z > min_depth. Writes the factor,
+    ``lin_mu``, ``mu`` and ``robust`` rows, as the JAX function does."""
+    f_eta_c, f_eta_l, f_lam_cc, f_lam_cl, f_lam_ll, robust, mu, z = (
+        _linearise_planes(state, graph, cfg))
+    mask = mask & torch.isfinite(torch.sum(torch.abs(mu), dim=0))
+    if cfg.min_depth > 0.0:
+        mask = mask & (torch.abs(z) > cfg.min_depth if cfg.relin_behind_camera
+                       else z > cfg.min_depth)
+    for name, new in (("f_eta_c", f_eta_c), ("f_eta_l", f_eta_l),
+                      ("f_lam_cc", f_lam_cc), ("f_lam_cl", f_lam_cl),
+                      ("f_lam_ll", f_lam_ll), ("lin_mu", mu), ("mu", mu)):
+        rows = getattr(state, name)
+        rows.copy_(torch.where(mask, new, rows))
+    state.robust.copy_(torch.where(mask, robust, state.robust))
     return state
 
 

@@ -1,0 +1,215 @@
+"""Incremental SLAM driver: the PyTorch counterpart of
+``gbp_poplar_tpu/drivers/slam.py``, with the same flags, defaults and
+lines.
+
+    python -m gbp_poplar_tpu_torch.drivers.slam --bal_file fr1desk \
+        --iters_between_kfs 700
+    GBP_PLATFORM=cpu python -m gbp_poplar_tpu_torch.drivers.slam --bal_file f.txt
+
+Keyframes activate one at a time (core/slam.py), every
+``--iters_between_kfs`` sweeps. The defaults are the JAX driver's: the
+damped Gauss-Newton schedule (``--schedule gn``), the one-sided depth
+guard with the settled-edge rescue after 300 sweeps (``--rescue_iters``),
+drift relinearisation 0.05 and Lambda damping, no coarse groups. Each
+segment's per-sweep lines are printed after the segment. Checkpoints are
+written after a keyframe's insertion, with the keyframe (``kf``) and
+``devices`` in their metadata, so ``--resume`` continues with the next
+segment bit-exactly. One device only: ``--devices > 1`` raises.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import sys
+import time
+
+import numpy as np
+import torch
+
+from ..core import build_graph, gauss_newton as gn, init_state, slam
+from ..utils import analysis, balio, checkpoint, evaluation
+from ..utils import flags as flags_lib, priors
+from . import common
+from .ba import _polish_problem
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        description="Incremental GBP SLAM on one CUDA device")
+    common.add_common_args(p)
+    p.add_argument("--iters_between_kfs", type=int, default=700)
+    p.add_argument("--polish", action="store_true",
+                   help="final global-BA refinement: a warm-started "
+                        "Levenberg-Marquardt/Schur pass on the batch MAP "
+                        "objective (annealed priors; the incremental "
+                        "handoff priors are replaced); the exported "
+                        "trajectory uses the polished means")
+    # the damped Gauss-Newton schedule is the incremental default, as in
+    # the JAX driver; --schedule reference restores the lazy one
+    p.set_defaults(schedule="gn")
+    return p
+
+
+def config_from_args(args):
+    """(GBPConfig, InitConfig) of the parsed flags with the slam driver's
+    defaults. Drift relinearisation and Lambda damping keep late keyframes
+    from oscillating; the one-sided depth guard keeps insertion's
+    behind-camera transients from being adopted, and the rescue lets edges
+    settled for 300 sweeps recapture a landmark deadlocked behind a camera
+    (the JAX driver's reasons and defaults)."""
+    return common.config_from_args(
+        args, default_relin_drift=0.05, default_lambda_damping=True,
+        relin_behind_camera=False, default_rescue_iters=300)
+
+
+def save_segment(path: str, state, graph, cfg, k: int, ibk: int,
+                 devices: int = 1) -> None:
+    """Checkpoint the state after segment ``k`` and keyframe k+1's
+    insertion: step ``k * ibk``, and ``kf`` (where a resume starts) and
+    ``devices`` in the metadata."""
+    checkpoint.save_checkpoint(path, state, graph, step=k * ibk, cfg=cfg)
+    _amend_meta(path, kf=k + 1, devices=devices)
+
+
+def main(argv=None) -> int:
+    args = build_parser().parse_args(argv)
+    common.check_devices(args.devices)
+    dev = common.select_device()
+    cfg, init_cfg = config_from_args(args)
+
+    problem = balio.load_bal(args.bal_file)
+    # refused before any init helper (av_depth_init is pinhole-only)
+    if problem.intrinsics is not None:
+        print("error: incremental SLAM needs a temporally ordered TUM-"
+              "variant sequence; BAL-dataset (Snavely-model) problems have "
+              "no keyframe order — use the batch `ba` driver", file=sys.stderr)
+        return 2
+    problem = priors.apply_init_noise(problem, init_cfg,
+                                      k_anchor=cfg.num_anchor_cams)
+    ibk = args.iters_between_kfs
+    print(f"{args.bal_file}: {problem.n_keyframes} keyframes, "
+          f"{problem.n_points} landmarks, {problem.n_edges} edges "
+          f"({ibk} iters/keyframe)", file=sys.stderr)
+
+    graph = build_graph(problem, cfg, dev)
+    start_kf = 1
+    if args.resume:
+        state, g2, meta = checkpoint.load_checkpoint(args.resume, dev)
+        ck_devices = meta.get("devices", 1)
+        if ck_devices != args.devices:
+            print(f"error: checkpoint was written with --devices "
+                  f"{ck_devices}, run has --devices {args.devices}",
+                  file=sys.stderr)
+            return 2
+        graph = common.resume_graph(graph, g2)
+        start_kf = meta.get("kf", meta.get("step", 0) // ibk + 1)
+        print(f"resumed from {args.resume} at keyframe {start_kf}",
+              file=sys.stderr)
+    else:
+        flags = flags_lib.create_flags(problem, cfg.steps)
+        state = init_state(problem, cfg, dev, flags=flags)
+
+    step = {"i": (start_kf - 1) * ibk, "since_save": 0, "t_first": None}
+
+    def progress(k, diag):
+        errs = diag.reproj_err.cpu().numpy()
+        costs = diag.cost.cpu().numpy()
+        relins = diag.n_relins.cpu().numpy()
+        robusts = diag.n_robust.cpu().numpy()
+        if step["t_first"] is None:
+            step["t_first"] = time.perf_counter()   # kernel build happened
+        stride = max(1, args.print_every)
+        for j in range(0, errs.shape[0], stride):
+            common.print_iteration(step["i"] + j, errs[j], costs[j],
+                                   int(relins[j]), int(robusts[j]))
+        step["i"] += errs.shape[0]
+        if k + 1 < problem.n_keyframes:
+            print(f"-- keyframe {k + 1} inserted --", file=sys.stderr)
+
+    def segment_callback(k, st):
+        if args.v:
+            # the belief stream at segment cadence
+            v_cam, _ = analysis.belief_means(st)
+            np.set_printoptions(precision=5, suppress=True)
+            print(f"beliefs (cam means) after keyframe {k}:\n{v_cam}",
+                  flush=True)
+        if not (args.checkpoint and args.checkpoint_every):
+            return
+        step["since_save"] += ibk
+        if step["since_save"] >= args.checkpoint_every:
+            step["since_save"] = 0
+            save_segment(args.checkpoint, st, graph, cfg, k, ibk,
+                         args.devices)
+
+    t0 = time.perf_counter()
+    result = slam.solve_slam(
+        state, graph, cfg, n_keyframes=problem.n_keyframes,
+        iters_between_kfs=ibk, av_depth=args.avdepth, progress=progress,
+        start_kf=start_kf, segment_callback=segment_callback)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    t_end = time.perf_counter()
+    dt = t_end - t0
+    total_iters = (problem.n_keyframes - start_kf) * ibk
+    msg = f"total {dt:.3f}s, {total_iters / dt:.1f} sweeps/s"
+    if total_iters > ibk and t_end > step["t_first"]:
+        msg += (f" (incl. kernel build; steady-state "
+                f"{(total_iters - ibk) / (t_end - step['t_first']):.1f} "
+                "sweeps/s)")
+    print(msg, file=sys.stderr)
+
+    cam_mu, lmk_mu = analysis.belief_means(result.state)
+    if args.polish:
+        # warm-started LM/Schur against the batch annealed-prior objective:
+        # a standard post-SLAM global bundle adjustment
+        graph1, pri = _polish_problem(problem, cfg, dev)
+        res = gn.solve_lm(torch.tensor(cam_mu, device=dev),
+                          torch.tensor(lmk_mu, device=dev), graph1, pri, cfg,
+                          n_lm_iters=15)
+        pol_cam = res.cam.cpu().numpy()
+        moved = float(np.linalg.norm(pol_cam[:, :3] - cam_mu[:, :3],
+                                     axis=1).max())
+        cam_mu, lmk_mu = pol_cam, res.lmk.cpu().numpy()
+        print(f"polish: reproj {float(res.reproj_err[-1]):.5f} px, "
+              f"max camera movement {moved:.5f} m", file=sys.stderr)
+    # the independent host oracle (--bad_assoc: the reference's skip list)
+    bad = common.parse_bad_assoc(args.bad_assoc)
+    o_err, o_cost = evaluation.numpy_reprojection_error(
+        cam_mu, lmk_mu, problem, bad_associations=bad or None)
+    excl = f"  ({len(bad)} bad associations excluded)" if bad else ""
+    print(f"host oracle: reproj_err {o_err:.5f} px  cost {o_cost:.4f}{excl}",
+          file=sys.stderr)
+    if args.v:
+        np.set_printoptions(precision=5, suppress=True)
+        print("cam means:\n", cam_mu)
+    if args.save_traj:
+        evaluation.export_tum(args.save_traj, cam_mu)
+        print(f"trajectory written to {args.save_traj}", file=sys.stderr)
+    if args.checkpoint:
+        save_segment(args.checkpoint, result.state, graph, cfg,
+                     problem.n_keyframes - 1, ibk, args.devices)
+        print(f"checkpoint written to {args.checkpoint}", file=sys.stderr)
+    if result.reproj_err.shape[0]:
+        final_err = result.reproj_err[-1, -10:].mean()
+        print(f"final reprojection error: {final_err:.5f} px",
+              file=sys.stderr)
+    return 0
+
+
+def _amend_meta(path: str, **extra) -> None:
+    """Add driver-level keys to a checkpoint's metadata (atomically)."""
+    with np.load(path) as z:
+        data = {k: z[k] for k in z.files}
+    meta = json.loads(bytes(data[checkpoint._META_KEY]).decode())
+    meta.update(extra)
+    data[checkpoint._META_KEY] = np.frombuffer(json.dumps(meta).encode(),
+                                               dtype=np.uint8)
+    tmp = path + ".tmp"
+    np.savez(tmp, **data)
+    os.replace(tmp if tmp.endswith(".npz") else tmp + ".npz", path)
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -94,6 +94,18 @@ def matvec(m, v):
     return out
 
 
+def mat_t_vec(m, v):
+    """m^T v for a plane matrix m (rows x cols) and a vector of ``rows``."""
+    rows, cols = len(m), len(m[0])
+    out = []
+    for j in range(cols):
+        acc = m[0][j] * v[0]
+        for k in range(1, rows):
+            acc = acc + m[k][j] * v[k]
+        out.append(acc)
+    return out
+
+
 def matmul(a, b):
     rows, inner, cols = len(a), len(b), len(b[0])
     out = [[None] * cols for _ in range(rows)]

@@ -2,6 +2,7 @@
 """Profile the port's kernels on one CUDA card, by torch.profiler.
 
     python3 scripts/torch_kernel_probe.py [--tree DIR] [h4] [h2] [h3] [driver]
+                                          [slam]
 
 With no mode, h4, h2 and h3:
   h4  the unfused sweep (H4) at chip_smoke.py's Venice shape (shuffled
@@ -25,7 +26,16 @@ With no mode, h4, h2 and h3:
       run with torch.profiler tracing the card only: its sweeps/s and the
       device's busy share between the first and the last sweep kernel (the
       union of kernel, copy and set intervals over that span), with the
-      kernels that take the most device time there.
+      kernels that take the most device time there;
+  slam  incremental SLAM at chip_smoke.py's TUM fr1desk shape with the
+      slam driver's config, from the state after three segments and
+      insertions: one segment of 700 sweeps with the accelerator on and
+      off, each with and without per-sweep diagnostics (ms per segment and
+      per sweep, host clock after a synchronise), one keyframe insertion;
+      then one segment with and one without diagnostics traced by
+      torch.profiler (the card only): the device's busy share between the
+      first and the last sweep kernel and the kernels with the most device
+      time.
 
 ``--tree DIR`` imports ``gbp_poplar_tpu_torch`` from another checkout
 (a parent commit unpacked with ``git archive``), so that one call can run
@@ -260,8 +270,69 @@ def probe_driver(dev) -> None:
           + "; ".join(f"{k} {ms:.1f} ms ({n})" for k, ms, n in top))
 
 
+def probe_slam(dev) -> None:
+    import dataclasses
+    import tempfile
+    import time
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from gbp_poplar_tpu_torch.core import build_graph, gbp, init_state, slam
+    from gbp_poplar_tpu_torch.drivers import slam as slam_driver
+    from gbp_poplar_tpu_torch.utils import flags
+
+    cfg, _ = slam_driver.config_from_args(
+        slam_driver.build_parser().parse_args(["--bal_file", "-"]))
+    ibk = cs.SLAM_IBK
+    prob = _problem(cs.SLAM_SHAPE, False)
+    graph = build_graph(prob, cfg, dev)
+    state = gbp.initialise(init_state(
+        prob, cfg, dev, flags=flags.create_flags(prob, cfg.steps)),
+        graph, cfg)
+    for k in range(1, 4):
+        state, _ = gbp.run_gbp(state, graph, cfg, ibk,
+                               with_diagnostics=False)
+        state = slam.insert_keyframe(state, graph, cfg, k + 1)
+
+    def wall_ms(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    off = dataclasses.replace(cfg, accel_every=0)
+    for label, c in (("on", cfg), ("off", off)):
+        for diags in (True, False):
+            st = state.clone()
+            ms = wall_ms(lambda: gbp.run_gbp(st, graph, c, ibk,
+                                             with_diagnostics=diags))
+            print(f"[slam] one segment of {ibk} sweeps (keyframes 0-4), "
+                  f"accelerator {label}, {'with' if diags else 'without'} "
+                  f"diagnostics: {ms:.1f} ms, {ms / ibk:.4f} ms/sweep")
+    st = state.clone()
+    print(f"[slam] one keyframe insertion: "
+          f"{wall_ms(lambda: slam.insert_keyframe(st, graph, cfg, 5)):.2f} "
+          "ms")
+    with tempfile.TemporaryDirectory() as tmp:
+        trace = os.path.join(tmp, "trace.json")
+        for diags in (True, False):
+            st = state.clone()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                gbp.run_gbp(st, graph, cfg, ibk, with_diagnostics=diags)
+                torch.cuda.synchronize()
+            prof.export_chrome_trace(trace)
+            span, share, top = _busy_share(trace, "sweep_kernel")
+            print(f"[slam] traced segment {'with' if diags else 'without'} "
+                  f"diagnostics: device busy {share:.1%} of the {span:.1f} ms "
+                  "from the first to the last sweep kernel; most device "
+                  "time: " + "; ".join(f"{k} {ms:.1f} ms ({n})"
+                                       for k, ms, n in top))
+
+
 PROBES = {"h4": probe_h4, "h2": probe_h2, "h3": probe_h3,
-          "driver": probe_driver}
+          "driver": probe_driver, "slam": probe_slam}
 
 
 def main(argv) -> int:

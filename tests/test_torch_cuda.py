@@ -213,3 +213,51 @@ def test_chunked_reduce_on_shuffled_cameras_on_card(cuda_device):
                                           reference=True)
         assert bool(((k - r).abs() <= 1e-5 * scale).all())
         assert torch.equal(k, reduce_kernel.segment_sum(planes, seg, prior))
+
+
+@pytest.mark.cuda
+def test_sweeps_under_slam_config_on_card(cuda_device):
+    """H1 and H4 under the SLAM driver's schedule flags (relinearise every
+    sweep, the one-sided depth guard, the rescue after 300 sweeps), right
+    after a keyframe insertion, with some landmarks behind the cameras and
+    the damping counters spread across the rescue threshold: each
+    bit-identical to its plain version and to each other; then a whole
+    SLAM solve lands where the CPU run does."""
+    from gbp_poplar_tpu_torch import solve_slam
+    from gbp_poplar_tpu_torch.core import slam
+    from gbp_poplar_tpu_torch.utils import flags
+
+    prob = balio.synthetic_problem(n_keyframes=6, n_points=60, seed=2,
+                                   pixel_noise=0.5)
+    cfg = GBPConfig(relin_every_iter=True, eta_damping=0.7,
+                    iters_before_damping=0, relin_behind_camera=False,
+                    behind_camera_rescue_iters=300)
+    g = fg.build_graph(prob, cfg, cuda_device)
+    s = gbp.initialise(fg.init_state(
+        prob, cfg, cuda_device, flags=flags.create_flags(prob, cfg.steps)),
+        g, cfg)
+    s, _ = gbp.run_gbp(s, g, cfg, 30, with_diagnostics=False)
+    s = slam.insert_keyframe(s, g, cfg, 2, 6.0)
+    lmk = g.lmk_idx[s.active > 0].unique()
+    s.lmk_bel[:3, lmk[:16:2]] *= -1.0
+    s.damping_count.copy_(torch.randint(
+        -2, 700, (g.n_edges,), device=cuda_device,
+        generator=torch.Generator(device=cuda_device).manual_seed(1)).to(
+            torch.int32))
+    ct, lt = table_kernel.build_tables(s.cam_bel, s.lmk_bel)
+    bc = reduce_kernel.gather(s.cam_bel, g.cam_idx)
+    bl = reduce_kernel.gather(s.lmk_bel, g.lmk_idx)
+    sk, sr, s4, s4r = s.clone(), s.clone(), s.clone(), s.clone()
+    sweep_kernel.sweep(sk, g, ct, lt, cfg)
+    sweep_kernel.sweep(sr, g, ct, lt, cfg, reference=True)
+    sweep_kernel.sweep_planes(s4, g, bc, bl, cfg)
+    sweep_kernel.sweep_planes(s4r, g, bc, bl, cfg, reference=True)
+    for a_state, b_state in ((sk, sr), (sk, s4), (s4, s4r)):
+        for f in ("pk", "damping_count", "robust"):
+            a, b = getattr(a_state, f), getattr(b_state, f)
+            assert bool(((a == b) | (a != a) & (b != b)).all()), f
+    _, _, e_gpu = solve_slam(prob, cfg, 60, 6.0, device=cuda_device)
+    _, _, e_cpu = solve_slam(prob, cfg, 60, 6.0, device="cpu")
+    assert np.isfinite(e_gpu).all()
+    np.testing.assert_allclose(e_gpu[:, -1], e_cpu[:, -1], rtol=0.01,
+                               atol=0.01)

@@ -28,10 +28,10 @@ import torch
 
 from gbp_poplar_tpu_torch.config import GBPConfig
 from gbp_poplar_tpu_torch.core import factor_graph as fg
-from gbp_poplar_tpu_torch.core import gbp
-from gbp_poplar_tpu_torch.ops import (_cuda, reduce_kernel, sweep_kernel,
-                                      table_kernel)
-from gbp_poplar_tpu_torch.utils import balio
+from gbp_poplar_tpu_torch.core import gbp, slam
+from gbp_poplar_tpu_torch.ops import (_cuda, planes, reduce_kernel,
+                                      sweep_kernel, table_kernel)
+from gbp_poplar_tpu_torch.utils import balio, flags
 
 torch.set_num_threads(1)
 
@@ -354,6 +354,96 @@ def test_host_built_unfused_edge_math_matches_plain(host_lib, name):
                        reduce_kernel.gather(state.lmk_bel, graph.lmk_idx))
     for f in ("pk", "damping_count", "robust"):
         assert torch.equal(getattr(fused, f), getattr(unfused, f)), f
+
+
+def _slam_state(pad=None):
+    """The SLAM driver's schedule (relinearise every sweep, the one-sided
+    depth guard, the settled-edge rescue after 300 sweeps) on a state that
+    takes every branch of it: keyframe 2 inserted into the warmed
+    keyframes 0 and 1 (later keyframes inactive), eight active landmarks
+    moved behind the cameras (eta negated: the cloud sits in front), the
+    damping counters spread over [-2, 700), zeros among them."""
+    prob = balio.synthetic_problem(n_keyframes=6, n_points=60, seed=2,
+                                   pixel_noise=0.5)
+    cfg = GBPConfig(accel_every=0, relin_every_iter=True, eta_damping=0.7,
+                    iters_before_damping=0, relin_behind_camera=False,
+                    behind_camera_rescue_iters=300)
+    if pad is not None:
+        cfg = dataclasses.replace(cfg, edge_pad_multiple=pad)
+    graph = fg.build_graph(prob, cfg, "cpu")
+    state = gbp.initialise(fg.init_state(
+        prob, cfg, "cpu", flags=flags.create_flags(prob, cfg.steps)),
+        graph, cfg)
+    state, _ = gbp.run_gbp(state, graph, cfg, 30, with_diagnostics=False)
+    state = slam.insert_keyframe(state, graph, cfg, 2, 6.0)
+    state, _ = gbp.run_gbp(state, graph, cfg, 3, with_diagnostics=False)
+    lmk = graph.lmk_idx[state.active > 0].unique()
+    state.lmk_bel[:3, lmk[:16:2]] *= -1.0
+    dc = np.random.default_rng(1).integers(-2, 700, graph.n_edges)
+    dc[::17] = 0
+    state.damping_count.copy_(torch.tensor(dc, dtype=torch.int32))
+    return cfg, graph, state
+
+
+@pytest.mark.parametrize("pad,tile", [(None, None), (None, 32), (1, 7)])
+def test_host_built_sweeps_match_plain_under_slam_config(host_lib, pad,
+                                                         tile):
+    """H1's and H4's bodies (in place, and through 32- and 7-edge tiles on
+    an unpadded edge count) under the SLAM driver's schedule flags
+    (``F_RELIN_EVERY_ITER`` set, ``F_RELIN_BEHIND_CAMERA`` clear, a rescue
+    threshold) against the plain sweeps; H4 == H1 to the bit. The state
+    takes every branch: edges relinearised in front of the camera, edges
+    behind it refused until their counter passes 300 and rescued after,
+    inactive edges, damping switched on at counter 0."""
+    cfg, graph, state = _slam_state(pad)
+    e = graph.n_edges
+    bc = reduce_kernel.gather(state.cam_bel, graph.cam_idx)
+    bl = reduce_kernel.gather(state.lmk_bel, graph.lmk_idx)
+    ct, lt = (_host_table(host_lib, bel, d)
+              for bel, d in ((state.cam_bel, 6), (state.lmk_bel, 3)))
+    ref1, ref4 = state.clone(), state.clone()
+    h1, h4 = state.clone(), state.clone()
+    sweep_kernel.sweep(ref1, graph, ct, lt, cfg)
+    sweep_kernel.sweep_planes(ref4, graph, bc, bl, cfg)
+    _host_sweep(host_lib, h1, graph, cfg, ct, lt, tile)
+    params = sweep_kernel.sweep_params(cfg, graph.k, graph.intr is not None)
+    args = [ctypes.addressof(params), h4.pk.data_ptr(),
+            h4.damping_count.data_ptr(), h4.robust.data_ptr(),
+            h4.active.data_ptr(), graph.meas.data_ptr(),
+            graph.meas_var.data_ptr(), _cuda.ptr(graph.intr), bc.data_ptr(),
+            bl.data_ptr(), e]
+    if tile is None:
+        host_lib.host_sweep_planes(*args)
+    else:
+        host_lib.host_sweep_planes_tiled(*args, tile)
+    for host, ref in ((h1, ref1), (h4, ref4)):
+        assert torch.equal(host.damping_count, ref.damping_count)
+        assert torch.equal(host.robust, ref.robust)
+        for f, (a, b) in fg.EDGE_PACK_OFFSETS.items():
+            want = ref.pk[a:b].numpy().astype(np.float64)
+            np.testing.assert_allclose(
+                host.pk[a:b].numpy(), want, rtol=RTOL,
+                atol=RTOL * max(np.abs(want).max(), 1e-30), err_msg=f)
+    for f in ("pk", "damping_count", "robust"):
+        assert torch.equal(getattr(h1, f), getattr(h4, f)), f
+    # every branch was taken (depth at the means the sweep adopted)
+    active = state.active > 0
+    mu = ref1.mu
+    y_cf, _ = planes.w2c_apply(list(mu[:6]), list(mu[6:]))
+    z = y_cf[2]
+    relin = (ref1.lin_mu != state.lin_mu).any(dim=0)
+    settled = ref1.damping_count > cfg.behind_camera_rescue_iters
+    behind = active & (z < -cfg.min_depth)
+    assert bool(relin[active & (z > cfg.min_depth)].all())
+    assert not bool(relin[~active].any())
+    assert bool((behind & settled).any()) and bool((behind & ~settled).any())
+    assert bool(relin[behind & settled].all())
+    assert not bool(relin[behind & ~settled].any())
+    switched = active & (state.damping_count == 0)
+    assert bool(switched.any())
+    assert bool((ref1.damping[switched] == np.float32(0.7)).all())
+    if pad == 1:
+        assert e % tile != 0
 
 
 def _host_table(host_lib, bel, d):
