@@ -75,7 +75,18 @@ the final ``ok`` line:
      without diagnostics; (e) the slam driver in process at 150 sweeps per
      keyframe with --polish, --save_traj and --checkpoint, its resume from
      the final checkpoint to the same trajectory, steady-state sweeps/s
-     with diagnostics and the same solve's without.
+     with diagnostics and the same solve's without;
+  13. the library around the solver, on the states and the file earlier
+     phases left (``[utils]`` lines): (a) ``weaken_priors`` through H3 on
+     the Ladybug state after initialise (phase 4) and the Venice state
+     after initialise + 20 sweeps (phase 5, cameras shuffled), against
+     kernels="reference"; (b) ``recenter_priors`` on the card against a
+     CPU copy, to the bit; (c) a bad-association mask of 1,000 random
+     edges at the Ladybug shape against the host oracle; (d)
+     ``dump_edge`` on the card against a CPU copy, and ``print_edge``;
+     (e) the KL helpers between two consecutive sweeps' states on the card
+     against a CPU copy; (f) the native BAL parser against the NumPy one
+     on phase 10's file, both load times.
 
 The last lines are one JSON object of per-kernel results (launches on
 the main paths, largest difference from the plain version, kernel, plain
@@ -90,6 +101,7 @@ import dataclasses
 import json
 import subprocess
 import sys
+import tempfile
 import time
 
 LADYBUG_SHAPE = (1723, 156000, 7)      # keyframes, landmarks, obs/landmark
@@ -140,6 +152,11 @@ SLAM_TIMED = 200
 # landmarks perturbed by LMK_NOISE, on a CPU (scripts/
 # slam_reference_error.py): for information, not a bound
 JAX_SLAM_FINAL_ERR = 0.813590
+
+# the library utilities (phase 13)
+UTILS_BAD_IDS = 1000       # (c): random original edge ids marked bad
+BAD_ORACLE_PX = 1e-3       # (c): masked error against the host oracle
+KL_GAP_FACTOR = 4.0        # (e): card vs CPU, against float32's own gap
 
 
 # The card's peaks (H100 SXM, NVIDIA's data sheet): HBM3 bytes/s and
@@ -462,11 +479,12 @@ def coarse_phase(prob, dev, reset_counts, read_counts, card):
     return launches, worst
 
 
-def driver_phase(raw, dev, reset_counts, read_counts, card):
+def driver_phase(raw, dev, reset_counts, read_counts, card, work):
     """Phase 10: the ba driver in process at the Ladybug shape with its
     defaults: a run with checkpoints, trajectory and the GN check, its
     resume, and the same sweeps uninterrupted, which the resumed lines
-    must equal. Returns the launch counts of the three runs."""
+    must equal. The BAL file stays in ``work`` for phase 13. Returns
+    (the launch counts of the three runs, the BAL file's path)."""
     import contextlib
     import io
     import os
@@ -525,8 +543,8 @@ def driver_phase(raw, dev, reset_counts, read_counts, card):
         return err.split(key)[1].split()[0]
 
     launches = {}
+    bal = os.path.join(work, "ladybug.txt")
     with tempfile.TemporaryDirectory() as tmp:
-        bal = os.path.join(tmp, "ladybug.txt")
         t0 = time.perf_counter()
         balio.save_bal(bal, raw)
         t_write = time.perf_counter() - t0
@@ -535,7 +553,8 @@ def driver_phase(raw, dev, reset_counts, read_counts, card):
         t_parse = time.perf_counter() - t0
         print(f"[driver] Ladybug shape as a BAL file: "
               f"{os.path.getsize(bal) / 2**20:.1f} MiB, written in "
-              f"{t_write:.2f} s, parsed in {t_parse:.2f} s")
+              f"{t_write:.2f} s, parsed by load_bal in {t_parse:.2f} s "
+              f"(the native parser, its g++ build on first use included)")
         ckpt, traj = os.path.join(tmp, "c.npz"), os.path.join(tmp, "t.txt")
         base = ("--bal_file", bal, "--ltn", LMK_NOISE)
         gn.solve_lm = timing("polish", real_lm)
@@ -583,7 +602,7 @@ def driver_phase(raw, dev, reset_counts, read_counts, card):
     for c in (c1, c2, c3):
         for k, n in c.items():
             launches[k] = launches.get(k, 0) + n
-    return launches
+    return launches, bal
 
 
 def lm_phase(prob, means, cfg, dev, reset_counts, read_counts, card):
@@ -901,6 +920,236 @@ def _slam_parts(run, tmp, raw, prob, graph, cfg, dev, reset_counts,
             h1_err, h4_err)
 
 
+def state_to(state, device):
+    """A copy of a solver state on ``device`` (states held between phases
+    wait on the host)."""
+    return type(state)(**{f.name: getattr(state, f.name).to(device,
+                                                              copy=True)
+                          for f in dataclasses.fields(state)})
+
+
+def utils_phase(held, bal, dev, reset_counts, read_counts, card):
+    """Phase 13: the library around the solver on the states and the file
+    earlier phases left (see the module docstring, (a)-(f)). Returns (the
+    launch counts of (a), H3's largest difference from plain in (a))."""
+    import contextlib
+    import io
+    import os
+
+    import numpy as np
+    import torch
+
+    from gbp_poplar_tpu_torch.core import factor_graph as fg
+    from gbp_poplar_tpu_torch.core import gbp
+    from gbp_poplar_tpu_torch.native import balio_native
+    from gbp_poplar_tpu_torch.ops import planes, reduce_kernel
+    from gbp_poplar_tpu_torch.utils import analysis, balio, debug, evaluation
+
+    t_phase = time.perf_counter()
+    prob_l, graph_l, host_l, cfg_l = held["ladybug"]
+    graph_v, host_v, cfg_v = held["venice"]
+    cases = (("Ladybug after initialise", graph_l, state_to(host_l, dev),
+              cfg_l),
+             ("Venice after initialise + 20 sweeps", graph_v,
+              state_to(host_v, dev), cfg_v))
+
+    # (a) weaken_priors through H3, against kernels="reference"
+    reset_counts()
+    weak = [gbp.weaken_priors(dataclasses.replace(st), g, c)
+            for _, g, st, c in cases]
+    launches = read_counts()
+    check(launches == {"sweep": 0, "table": 0, "reduce": 4,
+                       "sweep_planes": 0, "gather": 0},
+          "(a) weaken_priors did not go through H3 once per kind")
+    h3_err = 0.0
+    for (label, g, st, c), wk in zip(cases, weak):
+        wr = gbp.weaken_priors(dataclasses.replace(st), g,
+                               dataclasses.replace(c, kernels="reference"))
+        bits = all(torch.equal(getattr(wk, f), getattr(wr, f)) for f in
+                   ("cam_prior", "lmk_prior", "cam_weaken", "lmk_weaken"))
+        rels = []
+        for bel, ref, rows, seg, prior in (
+                (wk.cam_bel, wr.cam_bel, wk.pk[54:81], g.cam_seg,
+                 wk.cam_prior),
+                (wk.lmk_bel, wr.lmk_bel, wk.pk[81:90], g.lmk_seg,
+                 wk.lmk_prior)):
+            scale = reduce_kernel.segment_sum(rows.abs(), seg, prior.abs(),
+                                              reference=True)
+            diff = (bel - ref).abs()
+            h3_err = max(h3_err, diff.max().item())
+            rels.append((diff / (scale + 1e-30)).max().item())
+        live = (int((st.cam_weaken > 0).sum()),
+                int((st.lmk_weaken > 0).sum()))
+        plan = g.cam_seg.plan
+        how = ("one pass" if plan is None else f"two passes, "
+               f"{plan.n_chunks} chunks, {plan.n_runs} runs")
+        print(f"[utils] (a) weaken_priors, {label} (camera sums: {how}): "
+              f"{live[0]} cameras and {live[1]} landmarks weakened; priors "
+              f"and flags bit-identical to kernels=\"reference\": {bits}; "
+              f"beliefs max |H3 - plain| relative to sum |terms| cam "
+              f"{rels[0]:.3e}, lmk {rels[1]:.3e} (bound {REDUCE_RTOL})")
+        check(bits and max(rels) <= REDUCE_RTOL,
+              f"(a) weaken_priors, {label}: kernels and reference differ")
+    print(f"[utils] (a) launches {launches}")
+    del weak, cases
+    torch.cuda.empty_cache()
+
+    # (b) recenter_priors on the card against a CPU copy, at means moved
+    # from the priors' own by N(0, 1 cm) (float64, as another solver's)
+    rng = np.random.default_rng(15)
+    new_mu = [m + rng.normal(0, 0.01, m.shape)
+              for m in (prob_l.cam_means, prob_l.lmk_means)]
+    on_card = gbp.recenter_priors(state_to(host_l, dev), *new_mu)
+    on_cpu = gbp.recenter_priors(dataclasses.replace(host_l), *new_mu)
+    gaps = [(getattr(on_card, f).cpu() - getattr(on_cpu, f)).abs().max()
+            .item() for f in ("cam_prior", "lmk_prior")]
+    bits = all(torch.equal(getattr(on_card, f).cpu(), getattr(on_cpu, f))
+               for f in ("cam_prior", "lmk_prior"))
+    moved = not torch.equal(on_cpu.cam_prior, host_l.cam_prior)
+    print(f"[utils] (b) recenter_priors at new float64 means: "
+          f"card and CPU bit-identical: {bits} (max |gap| cam "
+          f"{gaps[0]:.3e}, lmk {gaps[1]:.3e}; tolerance 0); prior etas "
+          f"moved: {moved}")
+    check(bits and moved, "(b) recenter_priors: card and CPU differ")
+    del on_card, on_cpu
+
+    # (c) known-bad associations at the Ladybug shape
+    s = state_to(host_l, dev)
+    ids = np.random.default_rng(13).choice(prob_l.n_edges, UTILS_BAD_IDS,
+                                           replace=False)
+    mask = torch.as_tensor(fg.bad_edge_mask(prob_l, ids, cfg_l), device=dev)
+    empty = torch.as_tensor(fg.bad_edge_mask(prob_l, [], cfg_l), device=dev)
+    err, cost = gbp.reprojection_error(s, graph_l)
+    err_e, cost_e = gbp.reprojection_error(s, graph_l, empty)
+    m_all = gbp.map_cost(s, graph_l, cfg_l)
+    m_e = gbp.map_cost(s, graph_l, cfg_l, empty)
+    same_empty = (torch.equal(err, err_e) and torch.equal(cost, cost_e)
+                  and torch.equal(m_all, m_e))
+    err_b, cost_b = gbp.reprojection_error(s, graph_l, mask)
+    # the MAP cost's data term, with the priors zeroed so that their
+    # quadratic (~1e9 here) does not swamp the masked edges in float32
+    s0 = dataclasses.replace(s, cam_prior=torch.zeros_like(s.cam_prior),
+                             lmk_prior=torch.zeros_like(s.lmk_prior))
+    m_data = gbp.map_cost(s0, graph_l, cfg_l)
+    m_b = gbp.map_cost(s0, graph_l, cfg_l, mask)
+    cam_mu, lmk_mu = analysis.belief_means(s)
+    o_err, _ = evaluation.numpy_reprojection_error(
+        cam_mu, lmk_mu, prob_l, bad_associations=ids)
+    gap = abs(o_err - err_b.item())
+    print(f"[utils] (c) {int(mask.sum())} edges marked bad of "
+          f"{graph_l.n_edges}: an empty mask gives the unmasked error, "
+          f"cost and MAP cost to the bit: {same_empty}; masked error "
+          f"{err_b.item():.6f} px (unmasked {err.item():.6f}), host oracle "
+          f"{o_err:.6f} (|gap| {gap:.2e}, bound {BAD_ORACLE_PX}); "
+          f"0.5 sum |r|^2 {cost_b.item():.6e} masked < {cost.item():.6e}; "
+          f"MAP data term {m_b.item():.6e} masked < {m_data.item():.6e}")
+    check(same_empty and gap < BAD_ORACLE_PX and m_b < m_data
+          and cost_b < cost, "(c) the bad-association mask")
+    del s0
+
+    # two consecutive sweeps' states for (d) and (e)
+    prev = gbp.gbp_sweep(s, graph_l, cfg_l).clone()
+    cur = gbp.gbp_sweep(s, graph_l, cfg_l)
+    prev_cpu, cur_cpu = state_to(prev, "cpu"), state_to(cur, "cpu")
+
+    # (d) dump_edge on the card against the CPU copy
+    n_real = prob_l.n_edges
+    edges = [0, 1, *np.random.default_rng(14).choice(n_real, 2).tolist(),
+             n_real - 1]
+    for e in edges:
+        a = debug.dump_edge(cur, graph_l, e)
+        b = debug.dump_edge(cur_cpu, graph_l, e)
+        check(list(a) == list(b), "(d) dump_edge keys")
+        for k, v in b.items():
+            ok = type(a[k]) is type(v) and (
+                np.array_equal(a[k], v, equal_nan=True)
+                and a[k].dtype == v.dtype
+                if isinstance(v, np.ndarray) else a[k] == v)
+            check(ok, f"(d) dump_edge edge {e}: {k} differs")
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        debug.print_edge(cur, graph_l, edges[2])
+    lines = out.getvalue().splitlines()
+    print(f"[utils] (d) dump_edge of edges {edges}: card equal to the CPU "
+          f"copy in every field, to the bit; print_edge: {len(lines)} lines,"
+          f" the first: {lines[0]}")
+
+    # (e) KL helpers between the two sweeps' states, card against CPU
+    t0 = time.perf_counter()
+    kl_card = analysis.message_kl_trace(prev, cur)
+    torch.cuda.synchronize()
+    t_card = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    kl_cpu = analysis.message_kl_trace(prev_cpu, cur_cpu)
+    t_cpu = time.perf_counter() - t0
+    for side in ("to_cam", "to_lmk"):
+        a, b = kl_card[side], kl_cpu[side]
+        check(a.shape == b.shape == (graph_l.n_edges,), "(e) trace shape")
+        flips = int((np.isfinite(a) != np.isfinite(b)).sum())
+        print(f"[utils] (e) message_kl_trace {side}: finite on "
+              f"{int(np.isfinite(a).sum())} of {a.shape[0]} edges on the "
+              f"card, "
+              f"{int(np.isfinite(b).sum())} on the CPU (differing on "
+              f"{flips}, bound {SWEEP_FLIP_FRAC:g} of edges): a message's "
+              f"precision has rank 2, so the KL is undefined where its "
+              f"float32 rounding outweighs eps = 1e-6")
+        check(flips <= SWEEP_FLIP_FRAC * a.shape[0] + 1,
+              f"(e) message_kl_trace {side}: card and CPU differ")
+    print(f"[utils] (e) message_kl_trace at {graph_l.n_edges} edges: card "
+          f"{t_card:.3f} s, CPU {t_cpu:.3f} s")
+    def bel_kl(a, b, kind, d, dtype=torch.float32):
+        """symmetric_kl of one kind's beliefs in states a and b."""
+        ga = [getattr(a, f"{kind}_{x}").to(dtype) for x in ("eta", "lam")]
+        gb = [getattr(b, f"{kind}_{x}").to(dtype) for x in ("eta", "lam")]
+        return analysis.symmetric_kl(
+            ga[0].T, planes.unpack_sym_dense(ga[1], d),
+            gb[0].T, planes.unpack_sym_dense(gb[1], d))
+
+    for label, kind, d in (("cameras", "cam", 6), ("landmarks", "lmk", 3)):
+        k_card = bel_kl(prev, cur, kind, d).cpu().double()
+        k_cpu = bel_kl(prev_cpu, cur_cpu, kind, d).double()
+        k_64 = bel_kl(prev_cpu, cur_cpu, kind, d, torch.float64)
+        own = (k_cpu - k_64).abs().max().item()
+        gap = (k_card - k_cpu).abs().max().item()
+        finite = bool(torch.isfinite(k_card).all())
+        print(f"[utils] (e) symmetric_kl of the {label}' beliefs between "
+              f"the two sweeps: every value finite: {finite}; median "
+              f"{k_64.median().item():.3e}; max |card - CPU| {gap:.3e} "
+              f"(bound {KL_GAP_FACTOR:g} x float32's own max gap to "
+              f"float64, {own:.3e})")
+        check(finite and gap <= KL_GAP_FACTOR * own + 1e-30,
+              f"(e) belief KL of the {label}: card and CPU differ")
+    del s, prev, cur, prev_cpu, cur_cpu
+
+    # (f) the native BAL parser on phase 10's file
+    calls = balio_native.load.calls
+    t0 = time.perf_counter()
+    nat = balio.load_bal(bal)
+    t_nat = time.perf_counter() - t0
+    native_taken = balio_native.load.calls == calls + 1
+    t0 = time.perf_counter()
+    ref = balio.load_bal(bal, use_native=False)
+    t_np = time.perf_counter() - t0
+    check((nat.n_keyframes, nat.n_points, nat.n_edges)
+          == (ref.n_keyframes, ref.n_points, ref.n_edges)
+          and np.array_equal(nat.cam_idx, ref.cam_idx)
+          and np.array_equal(nat.lmk_idx, ref.lmk_idx),
+          "(f) native and NumPy parses differ in sizes or indices")
+    for f in ("measurements", "cam_means", "lmk_means", "k"):
+        np.testing.assert_allclose(getattr(nat, f), getattr(ref, f),
+                                   err_msg=f"(f) {f}")
+    bits = all(np.array_equal(getattr(nat, f), getattr(ref, f)) for f in
+               ("measurements", "cam_means", "lmk_means", "k"))
+    print(f"[utils] (f) {os.path.getsize(bal) / 2**20:.1f} MiB BAL file, "
+          f"{nat.n_edges} edges: load_bal took the native path: "
+          f"{native_taken}; native {t_nat:.3f} s, NumPy "
+          f"(use_native=False) {t_np:.3f} s ({t_np / t_nat:.1f} x); equal "
+          f"problems (values to the bit: {bits}) ({card})")
+    check(native_taken, "(f) load_bal did not take the native path")
+    print(f"[utils] phase 13 in {time.perf_counter() - t_phase:.1f} s")
+    return launches, h3_err
+
+
 def main() -> int:
     import torch
 
@@ -1152,6 +1401,8 @@ def main() -> int:
     reset_counts()
     s0 = init_state(prob_l, cfg, dev)
     s = gbp.initialise(s0, graph_l, cfg)
+    # phase 13 reads this state (after initialise) from the host
+    held = {"ladybug": (prob_l, graph_l, state_to(s, "cpu"), cfg)}
     err0 = gbp.reprojection_error(s, graph_l)[0].item()
     s, diag = gbp.run_gbp(s, graph_l, cfg, LADYBUG_SWEEPS)
     launches_l = read_counts()
@@ -1257,6 +1508,7 @@ def main() -> int:
         h4_err = max(h4_err, sweep_planes_case(label, s, g, cfg_u))
     state_v, _ = gbp.run_gbp(state_v, graph_v, cfg_u, 20,
                              with_diagnostics=False)
+    held["venice"] = (graph_v, state_to(state_v, "cpu"), cfg_u)
     h4_err = max(h4_err, sweep_planes_case(
         "Venice after initialise + 20 sweeps", state_v, graph_v, cfg_u))
     # H4 (gathered planes, per-edge means) against H1 (tables) on the same
@@ -1436,13 +1688,20 @@ def main() -> int:
     launches_c, h3_group_err = coarse_phase(prob_l, dev, reset_counts,
                                             read_counts, card)
     h3_err = max(h3_err, h3_group_err)
-    launches_d = driver_phase(raw_l, dev, reset_counts, read_counts, card)
+    work = tempfile.TemporaryDirectory()     # phase 10's BAL file
+    launches_d, bal = driver_phase(raw_l, dev, reset_counts, read_counts,
+                                   card, work.name)
     del raw_l, prob_l
     launches_lm = lm_phase(prob_v, venice_means, cfg_u, dev, reset_counts,
                            read_counts, card)
     launches_s, h1_slam, h4_slam = slam_phase(dev, reset_counts, read_counts,
                                               card, compare_sweeps)
     h1_err, h4_err = max(h1_err, h1_slam), max(h4_err, h4_slam)
+    launches_u, h3_utils = utils_phase(held, bal, dev, reset_counts,
+                                       read_counts, card)
+    h3_err = max(h3_err, h3_utils)
+    del held
+    work.cleanup()
 
     replaces = {
         "sweep": ("gbp_poplar_tpu_torch/csrc/sweep.cu",
@@ -1458,7 +1717,7 @@ def main() -> int:
     }
     launches = {k: sum(run[k] for run in (launches_l, launches_v, launches_c,
                                           launches_d, launches_lm,
-                                          *launches_s))
+                                          *launches_s, launches_u))
                 for k in replaces}
     check(all(n > 0 for n in launches.values()),
           "a kernel was never launched by the main paths")

@@ -11,10 +11,17 @@ accelerator and the coarse corrector, on the fused and the unfused sweep
 pipeline; incremental SLAM (core/slam.py: keyframe insertion, resume by
 keyframe); the Levenberg-Marquardt/Schur oracle (core/gauss_newton.py) and
 the intrinsics refit; checkpoints in the JAX package's format; trajectory
-evaluation; and the ``ba`` and ``slam`` command lines with the JAX
-drivers' flags and defaults (``python -m gbp_poplar_tpu_torch.drivers.ba``,
-``... .drivers.slam``). Not yet: sharding over several devices.
-ROADMAP.md lists what remains.
+evaluation; the ``ba`` and ``slam`` command lines with the JAX drivers'
+flags and defaults (``python -m gbp_poplar_tpu_torch.drivers.ba``,
+``... .drivers.slam``); the library around them: known-bad association
+masks (``core.factor_graph.bad_edge_mask`` and the ``bad`` argument of
+``core.gbp.reprojection_error`` / ``map_cost``), prior re-centring and
+weakening (``core.gbp.recenter_priors``, ``weaken_priors``), the dense
+linearisation and transforms (``ops.projection.linearise_factor``,
+``ops.lie.tranf_*``, ``ops.linalg``), KL and message traces
+(``utils.analysis``), edge dumps (``utils.debug``) and the native BAL
+parser (``native/balio.cpp``). Not yet: sharding over several devices and
+the benchmark scripts. ROADMAP.md lists what remains.
 """
 
 import torch

@@ -277,6 +277,22 @@ def edge_order(problem: BAProblem) -> np.ndarray:
                        np.asarray(problem.lmk_idx)))
 
 
+def bad_edge_mask(problem: BAProblem, bad_ids, cfg: GBPConfig) -> np.ndarray:
+    """[E_padded] bool NumPy mask of known-bad data associations in the
+    graph's edge order, from original problem (BAL file) edge ids: the
+    reference's ``bad_associations`` list, for the ``bad`` argument of
+    ``core.gbp.reprojection_error`` and ``map_cost`` once moved to the
+    graph's device. Raises ValueError for ids outside [0, n_edges)."""
+    ids = np.asarray(list(bad_ids), np.int64)
+    if ids.size and (ids.min() < 0 or ids.max() >= problem.n_edges):
+        raise ValueError(
+            f"bad association ids must be in [0, {problem.n_edges})")
+    orig = np.zeros(problem.n_edges, bool)
+    orig[ids] = True
+    mask = orig[edge_order(problem)]
+    return np.pad(mask, (0, padded_n_edges(problem, cfg) - problem.n_edges))
+
+
 def build_graph(problem: BAProblem, cfg: GBPConfig,
                 device: torch.device | str) -> GBPGraph:
     """Static graph tensors on ``device``, the edge axis padded to

@@ -34,6 +34,7 @@ import torch
 from ..config import GBPConfig
 from ..ops import planes as pl
 from ..ops import reduce_kernel
+from ..ops.linalg import bmv, inv6x6_cholesky_ex
 from .factor_graph import GBPGraph
 
 
@@ -94,17 +95,6 @@ def _intr_rows(graph: GBPGraph):
     return None if graph.intr is None else pl.unpack_vec(graph.intr, 3)
 
 
-def _inv6x6(a: torch.Tensor) -> torch.Tensor:
-    """Inverse of SPD [C, 6, 6] blocks by an equilibrated Cholesky
-    (A -> D A D, D = diag(A)^-1/2, which removes the unit mismatch of the
-    translation and rotation blocks), as the JAX ``linalg.inv6x6``."""
-    d = torch.rsqrt(torch.abs(torch.diagonal(a, dim1=-2, dim2=-1)) + 1e-30)
-    a_eq = a * d[..., :, None] * d[..., None, :]
-    chol, _ = torch.linalg.cholesky_ex(a_eq)
-    eye = torch.eye(6, dtype=a.dtype, device=a.device).expand_as(a)
-    return torch.cholesky_solve(eye, chol) * d[..., :, None] * d[..., None, :]
-
-
 def _build_planes(camT, lmkT, graph: GBPGraph, priors: GNPriors,
                   nstds: float, lm_lambda: torch.Tensor,
                   ref: bool) -> _NormalEqs:
@@ -152,7 +142,7 @@ def _build_planes(camT, lmkT, graph: GBPGraph, priors: GNPriors,
     t = pl.matmul(w_m, mv)
     wmw = [pl.vdot(t[i], w_m[j]) for (i, j) in pl.SYM6_IDX]
     s_diag = a_c - pl.unpack_sym_dense(_sum(wmw, graph.cam_seg, ref), 6)
-    return _NormalEqs(a_c, m_inv6, w18, b_c, b_l3, _inv6x6(s_diag))
+    return _NormalEqs(a_c, m_inv6, w18, b_c, b_l3, inv6x6_cholesky_ex(s_diag))
 
 
 def _wt_v_l3(ne: _NormalEqs, graph: GBPGraph, v: torch.Tensor,
@@ -178,15 +168,11 @@ def _minv_apply(ne: _NormalEqs, y3: torch.Tensor) -> torch.Tensor:
                                  pl.unpack_vec(y3, 3)))
 
 
-def _bmv(a: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    return (a @ v[..., None])[..., 0]
-
-
 def _schur_matvec_p(ne: _NormalEqs, graph: GBPGraph, v: torch.Tensor,
                     ref: bool) -> torch.Tensor:
     """S v = (A - W M^-1 W^T) v, matrix-free. v: [C, 6]."""
     z3 = _minv_apply(ne, _wt_v_l3(ne, graph, v, ref))
-    return _bmv(ne.a_c, v) - _w_z_c6(ne, graph, z3, ref)
+    return bmv(ne.a_c, v) - _w_z_c6(ne, graph, z3, ref)
 
 
 def _pcg(ne: _NormalEqs, rhs: torch.Tensor, n_iters: int, tol: float,
@@ -196,7 +182,7 @@ def _pcg(ne: _NormalEqs, rhs: torch.Tensor, n_iters: int, tol: float,
     the step length is 0 (no host check)."""
 
     def precond(r):
-        return _bmv(ne.s_diag_inv, r)
+        return bmv(ne.s_diag_inv, r)
 
     x = torch.zeros_like(rhs)
     r = rhs

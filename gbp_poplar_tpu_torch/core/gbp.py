@@ -27,6 +27,10 @@ their plain PyTorch versions, chosen by the tensors' device and
   and then, for both:
     3. ops/reduce_kernel.segment_sum: beliefs = priors + message sums.
 
+Around the solve: ``recenter_priors`` and ``weaken_priors`` edit the
+priors, and ``reprojection_error`` / ``map_cost`` take an optional mask of
+known-bad associations (``factor_graph.bad_edge_mask``).
+
 All per-edge state is in plane layout ([component, E] tensors, see
 ops/planes.py). PyTorch runs eagerly: the loop over sweeps is a Python
 loop, and diagnostics and the accelerator's decisions stay on the device
@@ -141,6 +145,24 @@ def relinearise_masked(state: GBPState, graph: GBPGraph, cfg: GBPConfig,
     return state
 
 
+def recenter_priors(state: GBPState, cam_mu=None, lmk_mu=None) -> GBPState:
+    """Re-centre the priors at new means, keeping their strengths: prior
+    eta = Lambda_prior mu (the reference's ``update_eta``), e.g. to import
+    a solution from another solver. ``cam_mu`` [C, 6] and ``lmk_mu``
+    [L, 3] are row-major (NumPy or tensors), cast to the state's dtype
+    before the product; an omitted kind keeps its prior. Updates
+    ``state`` (its prior tensors are replaced) and returns it."""
+    for name, mu, d in (("cam_prior", cam_mu, CAM_DOF),
+                        ("lmk_prior", lmk_mu, LMK_DOF)):
+        if mu is None:
+            continue
+        prior = getattr(state, name)
+        rows = torch.as_tensor(mu, dtype=prior.dtype, device=prior.device).T
+        eta = pl.matvec(pl.unpack_sym(prior[d:], d), pl.unpack_vec(rows, d))
+        setattr(state, name, torch.cat([pl.pack_vec(eta), prior[d:]]))
+    return state
+
+
 # ---------------------------------------------------------------------------
 # prior annealing
 # ---------------------------------------------------------------------------
@@ -156,6 +178,18 @@ def _anneal_priors(state: GBPState, graph: GBPGraph,
     state.cam_weaken = state.cam_weaken - cam_live.to(torch.int32)
     state.lmk_weaken = state.lmk_weaken - lmk_live.to(torch.int32)
     return state
+
+
+def weaken_priors(state: GBPState, graph: GBPGraph,
+                  cfg: GBPConfig) -> GBPState:
+    """Scale the priors by the per-variable annealing factor where the
+    weaken flag is live (> 0), decrementing the flag there, then refresh
+    the beliefs. Unlike the JAX function this takes ``cfg``: the belief
+    update runs the segmented-sum kernel (ops/reduce_kernel.segment_sum)
+    unless ``cfg.kernels == "reference"``."""
+    state = _anneal_priors(state, graph, state.cam_weaken > 0,
+                           state.lmk_weaken > 0)
+    return update_beliefs(state, graph, cfg)
 
 
 # ---------------------------------------------------------------------------
@@ -368,9 +402,12 @@ class Diagnostics(NamedTuple):
     cam_means: torch.Tensor | None = None
 
 
-def reprojection_error(state: GBPState, graph: GBPGraph):
+def reprojection_error(state: GBPState, graph: GBPGraph,
+                       bad: torch.Tensor | None = None):
     """Mean reprojection residual norm and total cost over active edges
-    whose residual is finite; NaN (not 0) when no edge is valid."""
+    whose residual is finite; NaN (not 0) when no edge is valid. ``bad``
+    ([E] bool on the graph's device, ``factor_graph.bad_edge_mask``)
+    excludes known-bad associations."""
     cam_mu, lmk_mu = _variable_means(state)
     mu_c = cam_mu.index_select(1, graph.cam_idx)
     mu_l = lmk_mu.index_select(1, graph.lmk_idx)
@@ -381,6 +418,8 @@ def reprojection_error(state: GBPState, graph: GBPGraph):
     rv = graph.meas[1] - v
     norm = torch.sqrt(ru * ru + rv * rv)
     valid = (state.active > 0) & torch.isfinite(norm)
+    if bad is not None:
+        valid = valid & ~bad
     norm = torch.where(valid, norm, 0.0)
     n_active = torch.sum(valid.to(norm.dtype))
     sum_norm = torch.sum(norm)
@@ -472,9 +511,10 @@ def _prior_quad(lam_planes, eta_planes, mu_planes, d):
 
 
 def _cost_parts(state: GBPState, graph: GBPGraph, cfg: GBPConfig,
-                mu_c_e, mu_l_e, cam_mu, lmk_mu):
+                mu_c_e, mu_l_e, cam_mu, lmk_mu, bad=None):
     """(robust data term, cam prior quad, lmk prior quad) of the MAP
-    objective at the given means, the per-edge means already gathered."""
+    objective at the given means, the per-edge means already gathered;
+    edges in ``bad`` add no data term."""
     (u, v), _, _ = pl.project(
         pl.unpack_vec(mu_c_e, 6), pl.unpack_vec(mu_l_e, 3), graph.k,
         None if graph.intr is None else pl.unpack_vec(graph.intr, 3))
@@ -485,6 +525,8 @@ def _cost_parts(state: GBPState, graph: GBPGraph, cfg: GBPConfig,
     k = cfg.huber_nstds
     loss = torch.where(err > k, k * err - 0.5 * k * k, 0.5 * err2)
     ok = (state.active > 0) & torch.isfinite(loss)
+    if bad is not None:
+        ok = ok & ~bad
     robust = torch.sum(torch.where(ok, loss, 0.0))
     cam_prior = _prior_quad(state.cam_prior_lam, state.cam_prior_eta,
                             cam_mu, 6)
@@ -493,15 +535,17 @@ def _cost_parts(state: GBPState, graph: GBPGraph, cfg: GBPConfig,
     return robust, cam_prior, lmk_prior
 
 
-def map_cost(state: GBPState, graph: GBPGraph, cfg: GBPConfig):
+def map_cost(state: GBPState, graph: GBPGraph, cfg: GBPConfig,
+             bad: torch.Tensor | None = None):
     """The MAP objective at the current belief means: the sum of whitened
     Huber losses over active edges plus the Gaussian prior quadratic (up to
-    the prior mean's constant, which cancels in comparisons)."""
+    the prior mean's constant, which cancels in comparisons). ``bad`` ([E]
+    bool) excludes known-bad associations from the data term."""
     cam_mu, lmk_mu = _variable_means(state)
     mu_c = cam_mu.index_select(1, graph.cam_idx)
     mu_l = lmk_mu.index_select(1, graph.lmk_idx)
     robust, cam_prior, lmk_prior = _cost_parts(
-        state, graph, cfg, mu_c, mu_l, cam_mu, lmk_mu)
+        state, graph, cfg, mu_c, mu_l, cam_mu, lmk_mu, bad)
     return robust + cam_prior + lmk_prior
 
 

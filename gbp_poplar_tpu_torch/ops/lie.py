@@ -1,7 +1,8 @@
 """Batched SO(3)/SE(3) operations on [..., 3] / [..., 6] tensors.
 
-The subset of ``gbp_poplar_tpu/ops/lie.py`` that prior construction, the
-coarse corrector's rigid basis and the trajectory export need. Pose
+The counterpart of ``gbp_poplar_tpu/ops/lie.py``: the rotations that prior
+construction, the coarse corrector's rigid basis and the trajectory export
+need, the homogeneous transforms and the optic-axis point. Pose
 convention: a keyframe is ``x = [t (3), w (3)]`` with world-to-camera
 action ``y_cam = exp(w^) y_world + t``.
 """
@@ -63,3 +64,36 @@ def w2c_apply(x: torch.Tensor, y_world: torch.Tensor) -> torch.Tensor:
     """Transform world points into the camera frame: R y + t."""
     r, t = pose_to_rt(x)
     return (r @ y_world[..., None])[..., 0] + t
+
+
+def _homogeneous(r: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """[..., 3, 3] rotation and [..., 3] translation -> [..., 4, 4]."""
+    top = torch.cat([r, t[..., :, None]], dim=-1)
+    bottom = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=r.dtype,
+                          device=r.device).expand(*r.shape[:-2], 1, 4)
+    return torch.cat([top, bottom], dim=-2)
+
+
+def tranf_w2c(x: torch.Tensor) -> torch.Tensor:
+    """Pose [..., 6] -> homogeneous world-to-camera transform [..., 4, 4]."""
+    r, t = pose_to_rt(x)
+    return _homogeneous(r, t)
+
+
+def tranf_c2w(x: torch.Tensor) -> torch.Tensor:
+    """Pose [..., 6] -> camera-to-world transform [..., 4, 4] (R^T, -R^T t)."""
+    r, t = pose_to_rt(x)
+    rt = r.transpose(-1, -2)
+    return _homogeneous(rt, -(rt @ t[..., None])[..., 0])
+
+
+def optic_axis_point_world(x: torch.Tensor,
+                           depth: float | torch.Tensor = 1.0) -> torch.Tensor:
+    """World coordinates [..., 3] of the point at ``depth`` on the camera's
+    optic axis: the camera-frame point (0, 0, depth) mapped through T_c2w,
+    as the average-depth landmark initialiser places it."""
+    r, t = pose_to_rt(x)
+    zero = torch.zeros_like(x[..., 0])
+    p_cam = torch.stack([zero, zero, torch.as_tensor(
+        depth, dtype=x.dtype, device=x.device).expand_as(zero)], dim=-1)
+    return (r.transpose(-1, -2) @ (p_cam - t)[..., None])[..., 0]

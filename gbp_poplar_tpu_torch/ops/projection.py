@@ -1,14 +1,19 @@
 """Reprojection model and Jacobians in row-major ([E, 6] / [E, 3]) form.
 
-The subset of ``gbp_poplar_tpu/ops/projection.py`` that the port uses,
-batched over a leading edge axis: the host-style 2x9 Jacobian for
-``utils.priors.prior_lambdas``, and the measurement function, its analytic
+The counterpart of ``gbp_poplar_tpu/ops/projection.py``, batched over a
+leading edge axis: the host-style 2x9 Jacobian for
+``utils.priors.prior_lambdas``; the measurement function, its analytic
 Jacobians and the Huber variance inflation for the coarse corrector
-(core/coarse.py). ``k`` is the [3, 3] shared pinhole as host numbers;
-``intr`` [..., 3] per-edge Snavely (f, k1, k2) selects the BAL model.
+(core/coarse.py); and the dense factor linearisation
+(``linearise_factor``), the row-major form of what the sweep computes on
+planes (ops/planes.linearise). ``k`` is the [3, 3] shared pinhole as host
+numbers; ``intr`` [..., 3] per-edge Snavely (f, k1, k2) selects the BAL
+model.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
@@ -113,3 +118,39 @@ def huber_meas_var(err: torch.Tensor, meas_var: torch.Tensor, nstds: float):
     denom = torch.where(robust, denom, 1.0)
     inflated = meas_var * err * err / denom
     return torch.where(robust, inflated, meas_var), robust
+
+
+class FactorPotential(NamedTuple):
+    """Linearised reprojection-factor potential, blockwise (the lc block is
+    cl^T and not stored)."""
+
+    eta_c: torch.Tensor    # [..., 6]
+    eta_l: torch.Tensor    # [..., 3]
+    lam_cc: torch.Tensor   # [..., 6, 6]
+    lam_cl: torch.Tensor   # [..., 6, 3]
+    lam_ll: torch.Tensor   # [..., 3, 3]
+
+
+def linearise_factor(cam_mu: torch.Tensor, lmk_mu: torch.Tensor, k,
+                     meas: torch.Tensor, meas_var: torch.Tensor,
+                     nstds: float, intr: torch.Tensor | None = None):
+    """Relinearise reprojection factors at the given means (cam_mu [..., 6],
+    lmk_mu [..., 3], meas [..., 2], meas_var [...]):
+    Lambda = J^T J / var', eta = J^T (J x0 + z - h(x0)) / var', with the
+    Huber inflation var' of the residual norm |h(x0) - z|. Returns
+    (FactorPotential, robust flag [...])."""
+    j_kf, j_lmk = reproj_jacobians(cam_mu, lmk_mu, k, intr)
+    hx0 = project(cam_mu, lmk_mu, k, intr)
+    jx0 = (j_kf @ cam_mu[..., None])[..., 0] + (j_lmk @ lmk_mu[..., None])[
+        ..., 0]
+    b = jx0 + meas - hx0
+    err = torch.linalg.vector_norm(hx0 - meas, dim=-1)
+    var, robust = huber_meas_var(err, meas_var, nstds)
+    inv_var = (1.0 / var)[..., None]
+    eta_c = (j_kf.transpose(-1, -2) @ b[..., None])[..., 0] * inv_var
+    eta_l = (j_lmk.transpose(-1, -2) @ b[..., None])[..., 0] * inv_var
+    inv_var2 = inv_var[..., None]
+    lam_cc = (j_kf.transpose(-1, -2) @ j_kf) * inv_var2
+    lam_ll = (j_lmk.transpose(-1, -2) @ j_lmk) * inv_var2
+    lam_cl = (j_kf.transpose(-1, -2) @ j_lmk) * inv_var2
+    return FactorPotential(eta_c, eta_l, lam_cc, lam_cl, lam_ll), robust

@@ -16,15 +16,19 @@ Two on-disk formats are supported and auto-detected:
   The intrinsics are held fixed (the reference never optimises intrinsics
   either).
 
-This is the NumPy path of ``gbp_poplar_tpu/utils/balio.py``, copied so that
-the PyTorch package never imports the JAX one. The JAX package's native C++
-parser for the TUM variant is not ported yet (ROADMAP.md).
+The counterpart of ``gbp_poplar_tpu/utils/balio.py``, copied so that the
+PyTorch package never imports the JAX one. Plain TUM-variant files go
+through the native C++ parser (native/balio.cpp, built with g++ on first
+use); original-BAL (Snavely) and compressed files, files the strict native
+parse refuses, and machines where it cannot be built take the NumPy path
+below, which is also the native parser's correctness oracle.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import os
+import warnings
 
 import numpy as np
 
@@ -93,10 +97,52 @@ def _open_text(path: str):
     return open(path)
 
 
-def load_bal(path_or_name: str) -> BAProblem:
+def _load_native(path: str) -> BAProblem | None:
+    """The native parse of ``path``, or None where the parser refuses the
+    file or cannot be built (a warning then says why)."""
+    from ..native import balio_native
+
+    try:
+        balio_native.library()
+    except (OSError, RuntimeError) as exc:
+        warnings.warn(f"native BAL parser unavailable, using NumPy: {exc}")
+        return None
+    try:
+        return balio_native.load(path)
+    except ValueError:
+        return None
+
+
+def _sniff_is_snavely(path: str) -> bool:
+    """Cheap line-2 sniff: the TUM variant's second line is the shared
+    intrinsics ``fx fy cx cy`` (floats, written with decimal points);
+    original-BAL's second line is the first observation ``cam pt u v``
+    with two bare integer indices. Ambiguous sniffs fall through to the
+    exact token-count check in :func:`_from_tokens`."""
+    with _open_text(path) as f:
+        header = f.readline().split()
+        second = f.readline().split()
+    if len(header) < 3 or len(second) < 2:
+        return False
+    try:
+        n_kf, n_pts = int(float(header[0])), int(float(header[1]))
+        t0, t1 = second[0], second[1]
+        plain_int = all(ch not in t for t in (t0, t1) for ch in ".eE")
+        return plain_int and 0 <= int(t0) < n_kf and 0 <= int(t1) < n_pts
+    except ValueError:
+        return False   # non-numeric tokens: let the exact parse decide
+
+
+def load_bal(path_or_name: str, use_native: bool = True) -> BAProblem:
     """Load a BAL-format file (TUM variant or original BAL) into a
-    BAProblem. The format is auto-detected (see module docstring)."""
+    BAProblem. The format is auto-detected (see module docstring); with
+    ``use_native`` an uncompressed TUM-variant file is parsed natively."""
     path = find_sequence(path_or_name)
+    if (use_native and not path.endswith((".bz2", ".gz"))
+            and not _sniff_is_snavely(path)):
+        problem = _load_native(path)
+        if problem is not None:
+            return problem
     # read + split tokenises on any whitespace in one pass (np.fromfile
     # with sep=' ' deprecates — and will raise — on non-numeric trailing
     # data, which the strict token-count check below must see instead)

@@ -261,3 +261,54 @@ def test_sweeps_under_slam_config_on_card(cuda_device):
     assert np.isfinite(e_gpu).all()
     np.testing.assert_allclose(e_gpu[:, -1], e_cpu[:, -1], rtol=0.01,
                                atol=0.01)
+
+
+@pytest.mark.cuda
+def test_weaken_priors_and_bad_mask_on_card(cuda_device):
+    """weaken_priors through H3 (cameras shuffled: the two-pass sum)
+    against kernels="reference": priors and flags equal, beliefs within
+    1e-5 of the sum of |terms|; then reprojection_error and map_cost with
+    a bad-association mask against the same calls on a CPU copy of the
+    state, and the error against the host oracle."""
+    from gbp_poplar_tpu_torch.utils import analysis, evaluation
+
+    prob = balio.synthetic_problem_large(n_keyframes=300, n_points=20001,
+                                         obs_per_lmk=5, seed=1)
+    perm = np.random.default_rng(1).permutation(prob.n_keyframes)
+    prob.cam_idx = perm[prob.cam_idx].astype(prob.cam_idx.dtype)
+    cfg = GBPConfig()
+    g = fg.build_graph(prob, cfg, cuda_device)
+    assert g.cam_seg.plan is not None
+    s = gbp.initialise(fg.init_state(prob, cfg, cuda_device), g, cfg)
+    reduce_kernel.segment_sum.launches = 0
+    sk = gbp.weaken_priors(s.clone(), g, cfg)
+    assert reduce_kernel.segment_sum.launches == 2
+    sr = gbp.weaken_priors(s.clone(), g, GBPConfig(kernels="reference"))
+    for f in ("cam_prior", "lmk_prior", "cam_weaken", "lmk_weaken"):
+        assert torch.equal(getattr(sk, f), getattr(sr, f)), f
+    assert not torch.equal(sk.cam_prior, s.cam_prior)
+    for bel, rows, seg, prior in ((sk.cam_bel, sk.pk[54:81], g.cam_seg,
+                                   sk.cam_prior),
+                                  (sk.lmk_bel, sk.pk[81:90], g.lmk_seg,
+                                   sk.lmk_prior)):
+        ref = reduce_kernel.segment_sum(rows, seg, prior, reference=True)
+        scale = reduce_kernel.segment_sum(rows.abs(), seg, prior.abs(),
+                                          reference=True)
+        assert bool(((bel - ref).abs() <= 1e-5 * scale).all())
+
+    ids = np.random.default_rng(2).choice(prob.n_edges, 500, replace=False)
+    bad_np = fg.bad_edge_mask(prob, ids, cfg)
+    bad = torch.as_tensor(bad_np, device=cuda_device)
+    cpu = fg.state_from_numpy(fg.state_to_numpy(sk), "cpu")
+    g_cpu = fg.build_graph(prob, cfg, "cpu")
+    for fn in (lambda st, gr, b: gbp.reprojection_error(st, gr, b),
+               lambda st, gr, b: (gbp.map_cost(st, gr, cfg, b),)):
+        on_card = [x.item() for x in fn(sk, g, bad)]
+        on_cpu = [x.item() for x in fn(cpu, g_cpu, torch.as_tensor(bad_np))]
+        np.testing.assert_allclose(on_card, on_cpu, rtol=1e-5)
+    err, _ = gbp.reprojection_error(sk, g, bad)
+    err_all, _ = gbp.reprojection_error(sk, g)
+    cam_mu, lmk_mu = analysis.belief_means(sk)
+    o_err, _ = evaluation.numpy_reprojection_error(cam_mu, lmk_mu, prob,
+                                                   bad_associations=ids)
+    assert err.item() != err_all.item() and abs(o_err - err.item()) < 1e-3
