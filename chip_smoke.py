@@ -86,7 +86,28 @@ the final ``ok`` line:
      ``dump_edge`` on the card against a CPU copy, and ``print_edge``;
      (e) the KL helpers between two consecutive sweeps' states on the card
      against a CPU copy; (f) the native BAL parser against the NumPy one
-     on phase 10's file, both load times.
+     on phase 10's file, both load times;
+  14. the sharded solvers (``[shard]`` lines; parallel/): (a) the
+     edge-sharded solver over NCCL at world size 1 at the Ladybug shape,
+     initialise + 20 sweeps, against the single-device run to the bit;
+     ms/sweep without diagnostics of one device, the edge-sharded and the
+     map-sharded solver at world size 1, in turns, and each mode's
+     all-reduce alone; (b) two gloo ranks sharing the card, edge-sharded
+     at the Ladybug shape (546,304 edges a rank) and map-sharded at the
+     fr1desk shape: initialise + one sweep of each pipeline in each, the
+     edge fields bit-identical to the single-device sweep and the beliefs
+     within 1e-5 of sum |terms|, then the ba driver's config for 400
+     sweeps edge-sharded, its final error within 0.005 px of phase 9's, and the time of
+     the per-sweep all-reduce (5.80 MB at this shape, 6.7 KB for the
+     fr1desk shape's camera sums); (c) the slam driver's ranks at
+     --devices 2 (map-sharded, two gloo ranks on the card) at the fr1desk
+     shape, 50 sweeps a keyframe (phase 12 (e) runs 150), --polish and
+     --checkpoint, the final error below 3.0 px beside phase 12 (e)'s,
+     and ``drivers.slam.main``'s
+     resume from the final checkpoint to the same trajectory. Every rank
+     reports its launch counts, and every rank must have launched H1-H3 on
+     the card (H4 and H5 too in (b)). The times of (b) and (c) come from
+     two ranks contending for one card: they are not scaling numbers.
 
 The last lines are one JSON object of per-kernel results (launches on
 the main paths, largest difference from the plain version, kernel, plain
@@ -158,6 +179,17 @@ UTILS_BAD_IDS = 1000       # (c): random original edge ids marked bad
 BAD_ORACLE_PX = 1e-3       # (c): masked error against the host oracle
 KL_GAP_FACTOR = 4.0        # (e): card vs CPU, against float32's own gap
 
+
+# the sharded solvers (phase 14)
+SHARD_NCCL_SWEEPS = 20     # (a): NCCL at world size 1 against one device
+SHARD_SWEEPS = COARSE_SWEEPS   # (b): the ba driver's config, as phase 9
+SHARD_AGREE_PX = 0.005     # (b): its final error against phase 9's
+# (c): the slam driver's two ranks. Cut from phase 12 (e)'s 150 sweeps a
+# keyframe to 50: two ranks sharing an H100 ran 61.0 sweeps/s, so (c)
+# took 164 s at 150 (PERF.md)
+SHARD_SLAM_IBK = 50
+SHARD_TIMED = 20           # (a), (b): all-reduces timed
+SHARD_TIMED_SWEEPS = 50    # (a): sweeps timed per reading
 
 # The card's peaks (H100 SXM, NVIDIA's data sheet): HBM3 bytes/s and
 # float32 operations/s outside the tensor cores. A kernel's bound is the
@@ -273,18 +305,23 @@ def time_reduce_sides(state, graph, n_real: int, card: str) -> float:
 def device_ms(fn, reps: int, kernel: str) -> float:
     """Mean device time (ms) per launch of the kernels whose names contain
     ``kernel``, over ``reps`` calls of ``fn()``, by torch.profiler, after
-    one warm-up call: the kernel's own time, whatever the host's pace."""
+    one warm-up call: the kernel's own time, whatever the host's pace. A
+    window whose kernel records the profiler lost (seen once on an H100,
+    PERF.md) is profiled again, up to three times."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    evs = [ev for ev in prof.key_averages()
-           if kernel in ev.key and ev.device_time_total > 0]
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        evs = [ev for ev in prof.key_averages()
+               if kernel in ev.key and ev.device_time_total > 0]
+        if evs:
+            break
     check(bool(evs), f"the profiler saw no {kernel} launch")
     return (sum(ev.device_time_total for ev in evs)
             / sum(ev.count for ev in evs) / 1e3)
@@ -397,7 +434,8 @@ def coarse_phase(prob, dev, reset_counts, read_counts, card):
     cameras in their generated order: every boundary's decisions, the
     final error against kernels="reference", one coarse step's time, and
     the group sums (H3 over the group-keyed segments) against their plain
-    version. Returns (launch counts, largest group-sum difference)."""
+    version. Returns (launch counts, largest group-sum difference, the
+    final error)."""
     import numpy as np
     import torch
 
@@ -476,7 +514,7 @@ def coarse_phase(prob, dev, reset_counts, read_counts, card):
               f"rerun: {again}")
         check(again and rel <= REDUCE_RTOL, f"coarse sums {label} differ")
         worst = max(worst, diff.max().item())
-    return launches, worst
+    return launches, worst, float(err[-1])
 
 
 def driver_phase(raw, dev, reset_counts, read_counts, card, work):
@@ -666,7 +704,7 @@ def slam_phase(dev, reset_counts, read_counts, card, compare_sweeps):
     sweeps per keyframe with --polish, --save_traj and --checkpoint, its
     resume from the final checkpoint (the same trajectory), and the same
     run without diagnostics. Returns (launch counts of the main paths,
-    largest H1 and H4 difference from plain)."""
+    largest H1 and H4 difference from plain, (e)'s final error)."""
     import tempfile
 
     import torch
@@ -916,8 +954,9 @@ def _slam_parts(run, tmp, raw, prob, graph, cfg, dev, reset_counts,
     check(same_traj and f"at keyframe {raw.n_keyframes}" in err2,
           "slam driver: resumed trajectory differs")
     del res_e
+    final_e = float(err1.split("final reprojection error: ")[1].split()[0])
     return ([launches_a, launches_c, launches_d, launches_e],
-            h1_err, h4_err)
+            h1_err, h4_err, final_e)
 
 
 def state_to(state, device):
@@ -1150,6 +1189,465 @@ def utils_phase(held, bal, dev, reset_counts, read_counts, card):
     return launches, h3_err
 
 
+def kernel_wrappers() -> dict:
+    """Each kernel's wrapper, whose ``launches`` counts its launches."""
+    from gbp_poplar_tpu_torch.ops import reduce_kernel, sweep_kernel
+    from gbp_poplar_tpu_torch.ops import table_kernel
+
+    return {"sweep": sweep_kernel.sweep, "table": table_kernel.build_tables,
+            "reduce": reduce_kernel.segment_sum,
+            "sweep_planes": sweep_kernel.sweep_planes,
+            "gather": reduce_kernel.gather}
+
+
+def reset_kernel_counts() -> None:
+    import torch
+
+    torch.cuda.synchronize()
+    for fn in kernel_wrappers().values():
+        fn.launches = 0
+
+
+def read_kernel_counts() -> dict:
+    import torch
+
+    torch.cuda.synchronize()
+    return {k: fn.launches for k, fn in kernel_wrappers().items()}
+
+
+def perturbed_problem(shape):
+    """``synthetic_problem_large(*shape)``, landmarks perturbed by
+    LMK_NOISE (seed 0), as phases 3-4, 9-10 and 12 build theirs."""
+    from gbp_poplar_tpu_torch.config import InitConfig
+    from gbp_poplar_tpu_torch.utils import balio, priors
+
+    return priors.apply_init_noise(balio.synthetic_problem_large(*shape),
+                                   InitConfig(lmk_noise=LMK_NOISE, seed=0))
+
+
+def ladybug_problem():
+    """The Ladybug-shape problem of phases 3-4 and 9-10."""
+    return perturbed_problem(LADYBUG_SHAPE)
+
+
+def map_placement(graph, n: int):
+    """(order, dest) of the real edges in a landmark partition over ``n``
+    ranks, worked out here apart from parallel/map_sharding.py: edge
+    ``order[i]`` of the graph sits at column ``dest[i]`` of the
+    partitioned layout (blocks of equal landmark ranges, the edges of each
+    in their graph order, every block as long as the largest)."""
+    import numpy as np
+
+    from gbp_poplar_tpu_torch import parallel
+
+    cam, lmk = graph.cam_idx.cpu().numpy(), graph.lmk_idx.cpu().numpy()
+    lmk = lmk[:parallel.real_edge_count(cam, lmk)]
+    shard = np.minimum(lmk // -(-graph.n_points // n), n - 1)
+    counts = np.bincount(shard, minlength=n)
+    order = np.argsort(shard, kind="stable")
+    starts = np.concatenate([[0], np.cumsum(counts)])
+    dest = (shard[order] * counts.max() + np.arange(len(lmk))
+            - starts[shard[order]])
+    return order, dest
+
+
+def nccl_rank(rank):
+    """Phase 14 (a), the one NCCL rank (this process): the edge-sharded
+    solver at the Ladybug shape, initialise + SHARD_NCCL_SWEEPS sweeps;
+    then the times of ``one_rank_times``. Returns (state, diagnostics,
+    launch counts, times)."""
+    from gbp_poplar_tpu_torch import parallel
+    from gbp_poplar_tpu_torch.config import GBPConfig
+    from gbp_poplar_tpu_torch.core import build_graph, init_state
+
+    prob = ladybug_problem()
+    cfg = GBPConfig(accel_every=0, coarse_groups=0)
+    solver = parallel.make_sharded_solver(rank.group, cfg)
+    g, s = solver.prepare(build_graph(prob, cfg, rank.device),
+                          init_state(prob, cfg, rank.device))
+    reset_kernel_counts()
+    s = solver.initialise(s, g)
+    s, diag = solver.run(s, g, SHARD_NCCL_SWEEPS)
+    counts = read_kernel_counts()
+    return s, diag, counts, one_rank_times(rank, prob, cfg, s.clone(), g)
+
+
+def one_rank_times(rank, prob, cfg, s_edge, g_edge) -> dict:
+    """Phase 14 (a)'s times at world size 1, ms per sweep over
+    SHARD_TIMED_SWEEPS anneal-free sweeps without diagnostics (``paced_ms``
+    readings, then ``busy_ms``): one device without a process group, the
+    edge-sharded solver (``s_edge``, ``g_edge``: its block after initialise
+    + sweeps) and the map-sharded one, in the order one, edge, map, map,
+    edge, one; then, per call, the all-reduce of each mode's per-sweep sums
+    alone (edge: 27 C + 9 L floats; map: 27 C), in the order edge, map,
+    map, edge."""
+    import torch
+
+    from gbp_poplar_tpu_torch import parallel
+    from gbp_poplar_tpu_torch.core import build_graph, comm, gbp, init_state
+
+    dev, group = rank.device, rank.group
+    off = 2 * cfg.steps
+    g1 = build_graph(prob, cfg, dev)
+    s1 = gbp.initialise(init_state(prob, cfg, dev), g1, cfg)
+    msolver = parallel.make_map_sharded_solver(group, cfg)
+    g_map, s_map = msolver.prepare(build_graph(prob, cfg, dev),
+                                   init_state(prob, cfg, dev))
+    s_map = msolver.initialise(s_map, g_map)
+    runs = {"one": lambda: gbp.run_gbp(s1, g1, cfg, SHARD_TIMED_SWEEPS,
+                                       with_diagnostics=False,
+                                       iter_offset=off),
+            "edge": lambda: gbp.run_gbp(s_edge, g_edge, cfg,
+                                        SHARD_TIMED_SWEEPS,
+                                        with_diagnostics=False,
+                                        iter_offset=off, group=group),
+            "map": lambda: gbp.run_gbp(s_map, g_map, cfg, SHARD_TIMED_SWEEPS,
+                                       with_diagnostics=False,
+                                       iter_offset=off, group=group,
+                                       lmk_sharded=True)}
+    out = {}
+    for k in ("one", "edge", "map", "map", "edge", "one"):
+        host, events = paced_ms(runs[k], 1)
+        out.setdefault(k, []).append(
+            (host / SHARD_TIMED_SWEEPS, events / SHARD_TIMED_SWEEPS))
+    for k, fn in runs.items():
+        out[f"busy {k}"] = busy_ms(fn, 1) / SHARD_TIMED_SWEEPS
+    payload = {"edge": [(27, g_edge.n_keyframes), (9, g_edge.n_points)],
+               "map": [(27, g_map.n_keyframes)]}
+    sums = {k: [torch.ones(sh, device=dev) for sh in v]
+            for k, v in payload.items()}
+    for k in ("edge", "map", "map", "edge"):
+        out.setdefault(f"reduce {k}", []).append(paced_ms(
+            lambda: comm.all_sum(group, sums[k]), SHARD_TIMED))
+    for k in payload:
+        out[f"busy reduce {k}"] = busy_ms(
+            lambda: comm.all_sum(group, sums[k]), SHARD_TIMED)
+    out["bytes"] = {k: 4 * sum(a * b for a, b in v)
+                    for k, v in payload.items()}
+    return out
+
+
+def paced_ms(fn, reps: int) -> tuple[float, float]:
+    """(host, events) ms per call of ``fn()`` over ``reps`` calls after a
+    warm-up call: the host's time to issue them (no synchronise inside)
+    and the CUDA events' time from the first one's start to the last one's
+    end. Equal times: the host sets the pace."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    for _ in range(reps):
+        fn()
+    stop.record()
+    host = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return host / reps * 1e3, start.elapsed_time(stop) / reps
+
+
+def busy_ms(fn, reps: int) -> float:
+    """Device time (ms) per call of ``fn()`` over ``reps`` calls after a
+    warm-up call: every kernel, copy and fill the profiler saw, summed."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return sum(ev.device_time_total for ev in prof.key_averages()) / reps / 1e3
+
+
+def edge_shard_rank(rank):
+    """Phase 14 (b), one of two gloo ranks sharing the card: the Ladybug
+    shape edge-sharded and the fr1desk shape map-sharded; initialise + one
+    sweep of each pipeline in each (rank 0, this process, keeps the
+    gathered states on the card), then the ba driver's config for
+    SHARD_SWEEPS sweeps edge-sharded; then the time of the per-sweep
+    all-reduce at this shape and at the fr1desk shape's camera sums.
+    Returns a dict; a spawned rank's is pickled, so it holds no state."""
+    import torch
+
+    from gbp_poplar_tpu_torch import parallel
+    from gbp_poplar_tpu_torch.config import GBPConfig
+    from gbp_poplar_tpu_torch.core import build_graph, comm, init_state
+
+    prob = ladybug_problem()
+    dev = rank.device
+    out = {"device": str(dev)}
+    reset_kernel_counts()
+    for fused in (True, False):
+        cfg = GBPConfig(accel_every=0, coarse_groups=0, fused=fused)
+        graph = build_graph(prob, cfg, dev)
+        n_edges = graph.n_edges
+        solver = parallel.make_sharded_solver(rank.group, cfg)
+        g, s = solver.prepare(graph, init_state(prob, cfg, dev))
+        del graph
+        out["block"] = g.n_edges
+        s = solver.sweep(solver.initialise(s, g), g)
+        full = solver.gather(s, n_edges)
+        if rank.rank == 0:
+            out[fused] = full
+        del g, s, full
+    slam_prob = perturbed_problem(SLAM_SHAPE)
+    for fused in (True, False):
+        cfg = GBPConfig(accel_every=0, coarse_groups=0, fused=fused)
+        solver = parallel.make_map_sharded_solver(rank.group, cfg)
+        g, s = solver.prepare(build_graph(slam_prob, cfg, dev),
+                              init_state(slam_prob, cfg, dev))
+        full = solver.gather(solver.sweep(solver.initialise(s, g), g))
+        if rank.rank == 0:
+            out[("map", fused)] = full
+        del g, s, full
+    cfg = GBPConfig(coarse_groups=COARSE_GROUPS)
+    solver = parallel.make_sharded_solver(rank.group, cfg)
+    g, s = solver.prepare(build_graph(prob, cfg, dev),
+                          init_state(prob, cfg, dev))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    s = solver.initialise(s, g)
+    s, diag = solver.run(s, g, SHARD_SWEEPS)
+    out["err"] = diag.reproj_err.cpu().numpy()
+    torch.cuda.synchronize()
+    out["wall"] = time.perf_counter() - t0
+    out["counts"] = read_kernel_counts()
+    out["allreduce_ms"] = {}
+    for label, shapes in (("ladybug", [(27, g.n_keyframes), (9, g.n_points)]),
+                          ("fr1desk", [(27, SLAM_SHAPE[0])])):
+        ts = [torch.ones(sh, device=dev) for sh in shapes]
+        comm.all_sum(rank.group, ts)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(SHARD_TIMED):
+            comm.all_sum(rank.group, ts)
+        torch.cuda.synchronize()
+        out["allreduce_ms"][label] = ((time.perf_counter() - t0)
+                                      / SHARD_TIMED * 1e3,
+                                      4 * sum(a * b for a, b in shapes))
+    return out
+
+
+def slam_driver_rank(rank, argv):
+    """Phase 14 (c), one rank of the slam driver at --devices 2: what
+    ``drivers.slam.main`` runs on each rank, with the rank's launch counts
+    around it. Returns (exit code, counts, stdout, stderr); only rank 0
+    prints."""
+    import contextlib
+    import io
+
+    from gbp_poplar_tpu_torch.drivers import slam as slam_driver
+
+    args = slam_driver.build_parser().parse_args(argv)
+    out, err = io.StringIO(), io.StringIO()
+    reset_kernel_counts()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = slam_driver._rank_main(rank, args)
+    return rc, read_kernel_counts(), out.getvalue(), err.getvalue()
+
+
+def shard_phase(dev, card, coarse_err, slam_e_err):
+    """Phase 14: the sharded solvers on the card (``[shard]`` lines; see the
+    module docstring). Returns the launch counts of its main paths, one
+    dict per rank and run."""
+    import contextlib
+    import io
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from gbp_poplar_tpu_torch import parallel
+    from gbp_poplar_tpu_torch.config import GBPConfig
+    from gbp_poplar_tpu_torch.core import build_graph, factor_graph as fg
+    from gbp_poplar_tpu_torch.core import gbp, init_state
+    from gbp_poplar_tpu_torch.drivers import slam as slam_driver
+    from gbp_poplar_tpu_torch.ops import reduce_kernel
+    from gbp_poplar_tpu_torch.utils import balio
+
+    t_phase = time.perf_counter()
+    launches = []
+
+    def on_card(counts, what):
+        check(counts["sweep"] + counts["sweep_planes"] > 0
+              and counts["table"] + counts["gather"] > 0
+              and counts["reduce"] > 0,
+              f"{what}: a rank did not launch H1/H4, H2/H5 and H3")
+
+    # (a) NCCL at world size 1 against the single-device run, to the bit
+    (s, diag, counts, times), = parallel.run(nccl_rank, 1,
+                                             device_type="cuda")
+    on_card(counts, "(a)")
+    launches.append(counts)
+    prob = ladybug_problem()
+    cfg = GBPConfig(accel_every=0, coarse_groups=0)
+    graph = build_graph(prob, cfg, dev)
+    s1 = gbp.initialise(init_state(prob, cfg, dev), graph, cfg)
+    s1, diag1 = gbp.run_gbp(s1, graph, cfg, SHARD_NCCL_SWEEPS)
+    bits = all(same(getattr(s, f).float(), getattr(s1, f).float())
+               for f in ("pk", "damping_count", "robust", "cam_bel",
+                         "lmk_bel"))
+    bits = bits and all(same(a, b) for a, b in zip(diag, diag1)
+                        if a is not None)
+    print(f"[shard] (a) NCCL, world size 1, {graph.n_edges} edges: "
+          f"initialise + {SHARD_NCCL_SWEEPS} sweeps equal to the "
+          f"single-device run to the bit (state and diagnostics): {bits}; "
+          f"error {diag.reproj_err[-1].item():.6f} px; launches {counts}")
+    check(bits, "(a) NCCL at world size 1 differs from one device")
+    del s, diag, s1, diag1
+
+    def readings(k):
+        return (" / ".join(f"{ev:.4f}" for _, ev in times[k])
+                + " (host issue " + " / ".join(f"{h:.4f}" for h, _ in
+                                               times[k])
+                + f"; device busy {times['busy ' + k]:.4f})")
+
+    print(f"[shard] (a) ms/sweep without diagnostics by events, "
+          f"{SHARD_TIMED_SWEEPS} sweeps a reading in the order one, edge, "
+          f"map, map, edge, one: one device (no process group) "
+          f"{readings('one')}, edge-sharded {readings('edge')}, "
+          f"map-sharded {readings('map')} (NCCL at world size 1; {card})")
+    print(f"[shard] (a) the all-reduce alone, ms a call, in the order edge, "
+          f"map, map, edge: edge's {times['bytes']['edge']} B "
+          f"{readings('reduce edge')}, map's {times['bytes']['map']} B "
+          f"{readings('reduce map')} (NCCL at world size 1; {card})")
+    check(all(np.isfinite(v).all() for k, v in times.items()
+              if k != "bytes"), "(a) a time is not finite")
+
+    # (b) gloo, two ranks sharing the card, edge-sharded
+    t0 = time.perf_counter()
+    res = parallel.run(edge_shard_rank, 2, device_type="cuda")
+    wall_b = time.perf_counter() - t0
+    for r, out in enumerate(res):
+        on_card(out["counts"], f"(b) rank {r}")
+        check(out["device"].startswith("cuda"), "(b) a rank off the card")
+        launches.append(out["counts"])
+    print(f"[shard] (b) gloo, 2 ranks on {res[0]['device']} and "
+          f"{res[1]['device']}, {res[0]['block']} edges a rank; launches "
+          f"rank 0 {res[0]['counts']}, rank 1 {res[1]['counts']}; "
+          f"{wall_b:.1f} s with the spawned rank's start")
+    def first_sweep(mode, problem, fused, pick):
+        """The two ranks' initialise + one sweep (``pick``: the gathered
+        edge and landmark columns in the single-device graph's order)
+        against the single-device sweep."""
+        c = GBPConfig(accel_every=0, coarse_groups=0, fused=fused)
+        g = build_graph(problem, c, dev)
+        s1 = gbp.gbp_sweep(gbp.initialise(init_state(problem, c, dev), g, c),
+                           g, c)
+        got = res[0][fused if mode == "edge" else (mode, fused)]
+        cols, ref_cols, n_l = pick(g)
+        bits = all(same(getattr(got, f)[..., cols].float(),
+                        getattr(s1, f)[..., ref_cols].float())
+                   for f in ("pk", "damping_count", "robust", "active"))
+        rels = []
+        for bel, prior, seg, rows in (
+                ("cam_bel", s1.cam_prior, g.cam_seg, fg.MSG_CAM_ROWS),
+                ("lmk_bel", s1.lmk_prior, g.lmk_seg, fg.MSG_LMK_ROWS)):
+            scale = reduce_kernel.segment_sum(
+                s1.pk[rows[0]:rows[1]].abs(), seg, prior.abs(),
+                reference=True)
+            gap = (getattr(got, bel)[:, :n_l if bel == "lmk_bel" else None]
+                   - getattr(s1, bel)).abs()
+            rels.append((gap / (scale + 1e-30)).max().item())
+        label = (f"{mode}-sharded, "
+                 + ("fused (H2 + H1)" if fused else "unfused (H5 + H4)"))
+        print(f"[shard] (b) {label}, {g.n_edges} edges: initialise + one "
+              f"sweep, edge fields bit-identical to the single-device "
+              f"sweep: {bits}; beliefs max |2 ranks - 1| relative to sum "
+              f"|terms| cam {rels[0]:.3e}, lmk {rels[1]:.3e} (bound "
+              f"{REDUCE_RTOL})")
+        check(bits and max(rels) <= REDUCE_RTOL,
+              f"(b) {label}: the sharded sweep differs")
+
+    def whole(g):
+        return slice(None), slice(None), None
+
+    def by_landmark(g):
+        order, dest = map_placement(g, 2)
+        return (torch.as_tensor(dest, device=dev),
+                torch.as_tensor(order, device=dev), g.n_points)
+
+    slam_prob = perturbed_problem(SLAM_SHAPE)
+    for fused in (True, False):
+        first_sweep("edge", prob, fused, whole)
+        first_sweep("map", slam_prob, fused, by_landmark)
+    err = res[0]["err"]
+    gap = abs(float(err[-1]) - coarse_err)
+    print(f"[shard] (b) the ba driver's config (coarse corrector over "
+          f"{COARSE_GROUPS} groups, the accelerator), {SHARD_SWEEPS} sweeps:"
+          f" error {err[0]:.4f} -> {err[-1]:.6f} px, phase 9's single-device "
+          f"run {coarse_err:.6f} px, |gap| {gap:.6f} (bound "
+          f"{SHARD_AGREE_PX}); {res[0]['wall'] / SHARD_SWEEPS * 1e3:.3f} "
+          f"ms/sweep with diagnostics, two ranks contending for one card, "
+          f"not a scaling number ({card})")
+    check(bool(np.isfinite(err).all()) and gap <= SHARD_AGREE_PX,
+          "(b) the sharded solve's final error is off the single device's")
+    for label, (ms, nbytes) in res[0]["allreduce_ms"].items():
+        print(f"[shard] (b) all-reduce of the per-sweep sums at the "
+              f"{label} shape: {nbytes} B ({nbytes / 1e6:.2f} MB), "
+              f"{ms:.3f} ms a sweep over gloo, staged through the host "
+              f"({card})")
+    del res
+    torch.cuda.empty_cache()
+
+    # (c) the slam driver at --devices 2: map-sharded SLAM at the fr1desk
+    # shape, its checkpoint and resume
+    with tempfile.TemporaryDirectory() as tmp:
+        bal = os.path.join(tmp, "fr1desk.txt")
+        balio.save_bal(bal, balio.synthetic_problem_large(*SLAM_SHAPE))
+        ckpt = os.path.join(tmp, "c.npz")
+        trajs = [os.path.join(tmp, f"t{i}.txt") for i in (1, 2)]
+        base = ["--bal_file", bal, "--ltn", str(LMK_NOISE),
+                "--iters_between_kfs", str(SHARD_SLAM_IBK), "--polish",
+                "--devices", "2"]
+        t0 = time.perf_counter()
+        res = parallel.run(slam_driver_rank, 2,
+                           (base + ["--save_traj", trajs[0], "--checkpoint",
+                                    ckpt],), device_type="cuda")
+        wall_c = time.perf_counter() - t0
+        rc, _, out, err = res[0]
+        for ln in err.splitlines():
+            if not ln.startswith("-- keyframe"):
+                print(f"[shard]   {ln}")
+        lines = [ln for ln in out.splitlines() if ln.startswith("iter")]
+        n_c = (SLAM_SHAPE[0] - 1) * SHARD_SLAM_IBK
+        check(all(r[0] == 0 for r in res) and len(lines) == n_c,
+              "(c) the slam driver at --devices 2 failed")
+        for r, (_, counts, _, _) in enumerate(res):
+            on_card(counts, f"(c) rank {r}")
+            check(counts["sweep"] == n_c, f"(c) rank {r}: not H1 every sweep")
+            launches.append(counts)
+        final = float(err.split("final reprojection error: ")[1].split()[0])
+        out2, err2 = io.StringIO(), io.StringIO()
+        with contextlib.redirect_stdout(out2), \
+                contextlib.redirect_stderr(err2):
+            rc2 = slam_driver.main(base + ["--save_traj", trajs[1],
+                                           "--resume", ckpt])
+        with open(trajs[0]) as a, open(trajs[1]) as b:
+            same_traj = a.read() == b.read()
+        print(f"[shard] (c) slam driver, --devices 2 (map-sharded, gloo, "
+              f"both ranks on the card): {SLAM_SHAPE[0]} keyframes x "
+              f"{SHARD_SLAM_IBK} sweeps in {wall_c:.1f} s with the spawned "
+              f"rank's start; final error {final:.5f} px (bound 3.0; phase "
+              f"12 (e)'s single-device run at {SLAM_DRIVER_IBK} sweeps a "
+              f"keyframe {slam_e_err:.5f} px; the new landmarks' depth is a "
+              f"mean over the ranks, not a median); "
+              f"launches rank 0 {res[0][1]}, rank 1 {res[1][1]}; resumed "
+              f"from the final checkpoint through drivers.slam.main: exit "
+              f"{rc2}, the same trajectory: {same_traj} ({card})")
+        check(final < 3.0, "(c) map-sharded SLAM: final error guard")
+        check(rc2 == 0 and same_traj
+              and f"at keyframe {SLAM_SHAPE[0]}" in err2.getvalue(),
+              "(c) the resumed trajectory differs")
+    print(f"[shard] phase 14 in {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -1169,20 +1667,7 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     name = torch.cuda.get_device_name(0)
     card = smi_line()
-    wrappers = {"sweep": sweep_kernel.sweep,
-                "table": table_kernel.build_tables,
-                "reduce": reduce_kernel.segment_sum,
-                "sweep_planes": sweep_kernel.sweep_planes,
-                "gather": reduce_kernel.gather}
-
-    def reset_counts():
-        torch.cuda.synchronize()
-        for fn in wrappers.values():
-            fn.launches = 0
-
-    def read_counts():
-        torch.cuda.synchronize()
-        return {k: fn.launches for k, fn in wrappers.items()}
+    reset_counts, read_counts = reset_kernel_counts, read_kernel_counts
 
     # ---- 1. environment ----
     print(f"[env] python {sys.version.split()[0]}, torch {torch.__version__},"
@@ -1685,8 +2170,8 @@ def main() -> int:
     venice_means = analysis.belief_means(s)
     del s, graph_v, degs, cam_mu, lmk_mu, snap, avg
     torch.cuda.empty_cache()
-    launches_c, h3_group_err = coarse_phase(prob_l, dev, reset_counts,
-                                            read_counts, card)
+    launches_c, h3_group_err, coarse_err = coarse_phase(
+        prob_l, dev, reset_counts, read_counts, card)
     h3_err = max(h3_err, h3_group_err)
     work = tempfile.TemporaryDirectory()     # phase 10's BAL file
     launches_d, bal = driver_phase(raw_l, dev, reset_counts, read_counts,
@@ -1694,14 +2179,16 @@ def main() -> int:
     del raw_l, prob_l
     launches_lm = lm_phase(prob_v, venice_means, cfg_u, dev, reset_counts,
                            read_counts, card)
-    launches_s, h1_slam, h4_slam = slam_phase(dev, reset_counts, read_counts,
-                                              card, compare_sweeps)
+    launches_s, h1_slam, h4_slam, slam_e_err = slam_phase(
+        dev, reset_counts, read_counts, card, compare_sweeps)
     h1_err, h4_err = max(h1_err, h1_slam), max(h4_err, h4_slam)
     launches_u, h3_utils = utils_phase(held, bal, dev, reset_counts,
                                        read_counts, card)
     h3_err = max(h3_err, h3_utils)
     del held
     work.cleanup()
+    torch.cuda.empty_cache()
+    launches_x = shard_phase(dev, card, coarse_err, slam_e_err)
 
     replaces = {
         "sweep": ("gbp_poplar_tpu_torch/csrc/sweep.cu",
@@ -1717,7 +2204,8 @@ def main() -> int:
     }
     launches = {k: sum(run[k] for run in (launches_l, launches_v, launches_c,
                                           launches_d, launches_lm,
-                                          *launches_s, launches_u))
+                                          *launches_s, launches_u,
+                                          *launches_x))
                 for k in replaces}
     check(all(n > 0 for n in launches.values()),
           "a kernel was never launched by the main paths")

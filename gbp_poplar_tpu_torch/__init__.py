@@ -19,9 +19,11 @@ masks (``core.factor_graph.bad_edge_mask`` and the ``bad`` argument of
 weakening (``core.gbp.recenter_priors``, ``weaken_priors``), the dense
 linearisation and transforms (``ops.projection.linearise_factor``,
 ``ops.lie.tranf_*``, ``ops.linalg``), KL and message traces
-(``utils.analysis``), edge dumps (``utils.debug``) and the native BAL
-parser (``native/balio.cpp``). Not yet: sharding over several devices and
-the benchmark scripts. ROADMAP.md lists what remains.
+(``utils.analysis``), edge dumps (``utils.debug``), the native BAL
+parser (``native/balio.cpp``), and sharding over the ranks of a
+``torch.distributed`` group (``parallel``: the edge-sharded solve and
+map-partitioned SLAM, the drivers' ``--devices N``). Not yet: the
+benchmark scripts. ROADMAP.md lists what remains.
 """
 
 import torch

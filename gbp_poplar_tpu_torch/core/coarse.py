@@ -26,6 +26,7 @@ import torch
 from ..config import GBPConfig
 from ..ops import lie, projection, reduce_kernel
 from ..ops import planes as pl
+from . import comm
 from .factor_graph import GBPGraph, GBPState, Segments, build_segments
 
 RIGID_DOF = 6
@@ -112,12 +113,15 @@ def _fin(x: torch.Tensor) -> torch.Tensor:
 
 
 def coarse_increment(state: GBPState, graph: GBPGraph, cfg: GBPConfig,
-                     cam_mu: torch.Tensor, lmk_mu: torch.Tensor):
+                     cam_mu: torch.Tensor, lmk_mu: torch.Tensor,
+                     group=None, lmk_sharded: bool = False):
     """Solve the reduced Gauss-Newton system over per-group rigid modes.
 
     ``cam_mu`` [6, C] / ``lmk_mu`` [3, L] are the current belief means in
     plane layout. Returns (delta_cam [6, C], delta_lmk [3, L]), zero where
-    the coarse gradient is zero."""
+    the coarse gradient is zero. With ``group`` the edge terms of the
+    system are summed over the ranks, and with ``lmk_sharded`` the
+    landmark prior terms too (the JAX function's two psums)."""
     g = cfg.coarse_groups
     ref = cfg.kernels == "reference"
     segs = group_segments(graph, g)
@@ -168,6 +172,8 @@ def coarse_increment(state: GBPState, graph: GBPGraph, cfg: GBPConfig,
     a = a + a_ab.permute(1, 0, 3, 2)        # block (gb, ga) gets ab^T
     rhs = (_group_sum(rc, segs.edge_cam, ref)
            + _group_sum(rl, segs.edge_lmk, ref))                   # [G, 6]
+    if group is not None:
+        a, rhs = comm.all_sum(group, [a, rhs])
 
     # --- prior terms (gradient and curvature of the annealed priors) ---
     lam_c = pl.unpack_sym_dense(state.cam_prior_lam, 6)         # [C,6,6]
@@ -183,11 +189,14 @@ def coarse_increment(state: GBPState, graph: GBPGraph, cfg: GBPConfig,
     a_p = torch.zeros_like(a)
     a_p[diag, diag] = _group_sum(pa_c, segs.cam, ref)
     a = a + a_p
+    a_pl = _group_sum(pa_l, segs.lmk, ref)
+    r_pl = _group_sum(pb_l, segs.lmk, ref)
+    if group is not None and lmk_sharded:
+        a_pl, r_pl = comm.all_sum(group, [a_pl, r_pl])
     a_p = torch.zeros_like(a)
-    a_p[diag, diag] = _group_sum(pa_l, segs.lmk, ref)
+    a_p[diag, diag] = a_pl
     a = a + a_p
-    rhs = rhs + _group_sum(pb_c, segs.cam, ref) + _group_sum(pb_l, segs.lmk,
-                                                             ref)
+    rhs = rhs + _group_sum(pb_c, segs.cam, ref) + r_pl
 
     # --- assemble dense [6G, 6G], damp, solve ---
     n = g * RIGID_DOF

@@ -31,6 +31,11 @@ Around the solve: ``recenter_priors`` and ``weaken_priors`` edit the
 priors, and ``reprojection_error`` / ``map_cost`` take an optional mask of
 known-bad associations (``factor_graph.bad_edge_mask``).
 
+The sharded solvers (parallel/) run these functions on each rank with a
+``group`` argument: every sum over edges becomes the rank's own sum and one
+``all_reduce`` (core/comm.py), at the places the JAX package ``psum``s;
+with ``group=None`` nothing else changes.
+
 All per-edge state is in plane layout ([component, E] tensors, see
 ops/planes.py). PyTorch runs eagerly: the loop over sweeps is a Python
 loop, and diagnostics and the accelerator's decisions stay on the device
@@ -46,7 +51,7 @@ import torch
 from ..config import GBPConfig
 from ..ops import planes as pl
 from ..ops import reduce_kernel, sweep_kernel, table_kernel
-from . import coarse
+from . import coarse, comm
 from .factor_graph import (CAM_DOF, LMK_DOF, MSG_CAM_ROWS, MSG_LMK_ROWS,
                            GBPGraph, GBPState)
 
@@ -73,17 +78,39 @@ def _sanitized_means(state: GBPState, cfg: GBPConfig):
 # belief update
 # ---------------------------------------------------------------------------
 
-def update_beliefs(state: GBPState, graph: GBPGraph,
-                   cfg: GBPConfig) -> GBPState:
+def update_beliefs(state: GBPState, graph: GBPGraph, cfg: GBPConfig,
+                   group=None, lmk_sharded: bool = False) -> GBPState:
     """belief = prior + sum of incoming messages, one segmented sum per
-    variable kind over the message rows of the packed edge state."""
+    variable kind over the message rows of the packed edge state.
+
+    With ``group`` (a ``torch.distributed`` process group; the edges are
+    split over its ranks, parallel/sharding.py) each rank sums its own
+    edges' messages without the prior, the partial sums are summed over
+    the ranks in one ``all_reduce``, and then the prior is added: the JAX
+    package's psum. With ``lmk_sharded`` (parallel/map_sharding.py: each
+    rank owns a landmark block and all of its edges) the landmark sums are
+    whole on their rank and only the camera sums cross ranks."""
     ref = cfg.kernels == "reference"
-    state.cam_bel = reduce_kernel.segment_sum(
-        state.pk[MSG_CAM_ROWS[0]:MSG_CAM_ROWS[1]], graph.cam_seg,
-        state.cam_prior, reference=ref)
-    state.lmk_bel = reduce_kernel.segment_sum(
-        state.pk[MSG_LMK_ROWS[0]:MSG_LMK_ROWS[1]], graph.lmk_seg,
-        state.lmk_prior, reference=ref)
+    cam_rows = state.pk[MSG_CAM_ROWS[0]:MSG_CAM_ROWS[1]]
+    lmk_rows = state.pk[MSG_LMK_ROWS[0]:MSG_LMK_ROWS[1]]
+    if group is None:
+        state.cam_bel = reduce_kernel.segment_sum(
+            cam_rows, graph.cam_seg, state.cam_prior, reference=ref)
+        state.lmk_bel = reduce_kernel.segment_sum(
+            lmk_rows, graph.lmk_seg, state.lmk_prior, reference=ref)
+        return state
+    cam_sum = reduce_kernel.segment_sum(cam_rows, graph.cam_seg,
+                                        reference=ref)
+    if lmk_sharded:
+        (cam_sum,) = comm.all_sum(group, [cam_sum])
+        state.lmk_bel = reduce_kernel.segment_sum(
+            lmk_rows, graph.lmk_seg, state.lmk_prior, reference=ref)
+    else:
+        lmk_sum = reduce_kernel.segment_sum(lmk_rows, graph.lmk_seg,
+                                            reference=ref)
+        cam_sum, lmk_sum = comm.all_sum(group, [cam_sum, lmk_sum])
+        state.lmk_bel = state.lmk_prior + lmk_sum
+    state.cam_bel = state.cam_prior + cam_sum
     return state
 
 
@@ -372,10 +399,12 @@ def edge_math(
             damping, damping_count, new_mu, lin_mu, robust)
 
 
-def gbp_sweep(state: GBPState, graph: GBPGraph, cfg: GBPConfig) -> GBPState:
+def gbp_sweep(state: GBPState, graph: GBPGraph, cfg: GBPConfig,
+              group=None, lmk_sharded: bool = False) -> GBPState:
     """One synchronous sweep, in place on the edge state, then the belief
-    update. ``cfg.fused``: belief tables and the fused per-edge sweep;
-    otherwise the beliefs gathered per edge and the unfused sweep."""
+    update (``group``, ``lmk_sharded``: see ``update_beliefs``).
+    ``cfg.fused``: belief tables and the fused per-edge sweep; otherwise
+    the beliefs gathered per edge and the unfused sweep."""
     ref = cfg.kernels == "reference"
     if cfg.fused:
         cam_tbl, lmk_tbl = table_kernel.build_tables(
@@ -385,7 +414,7 @@ def gbp_sweep(state: GBPState, graph: GBPGraph, cfg: GBPConfig) -> GBPState:
         bc = reduce_kernel.gather(state.cam_bel, graph.cam_idx, reference=ref)
         bl = reduce_kernel.gather(state.lmk_bel, graph.lmk_idx, reference=ref)
         sweep_kernel.sweep_planes(state, graph, bc, bl, cfg, reference=ref)
-    return update_beliefs(state, graph, cfg)
+    return update_beliefs(state, graph, cfg, group, lmk_sharded)
 
 
 # ---------------------------------------------------------------------------
@@ -402,12 +431,8 @@ class Diagnostics(NamedTuple):
     cam_means: torch.Tensor | None = None
 
 
-def reprojection_error(state: GBPState, graph: GBPGraph,
-                       bad: torch.Tensor | None = None):
-    """Mean reprojection residual norm and total cost over active edges
-    whose residual is finite; NaN (not 0) when no edge is valid. ``bad``
-    ([E] bool on the graph's device, ``factor_graph.bad_edge_mask``)
-    excludes known-bad associations."""
+def _reprojection_sums(state: GBPState, graph: GBPGraph, bad):
+    """(valid edges, sum of residual norms, cost) over this graph's edges."""
     cam_mu, lmk_mu = _variable_means(state)
     mu_c = cam_mu.index_select(1, graph.cam_idx)
     mu_l = lmk_mu.index_select(1, graph.lmk_idx)
@@ -424,36 +449,60 @@ def reprojection_error(state: GBPState, graph: GBPGraph,
     n_active = torch.sum(valid.to(norm.dtype))
     sum_norm = torch.sum(norm)
     cost = 0.5 * torch.sum(norm * norm)
-    mean_err = torch.where(n_active > 0,
-                           sum_norm / torch.clamp_min(n_active, 1.0),
-                           torch.nan)
-    return mean_err, cost
+    return n_active, sum_norm, cost
+
+
+def _mean_error(n_active, sum_norm):
+    return torch.where(n_active > 0,
+                       sum_norm / torch.clamp_min(n_active, 1.0), torch.nan)
+
+
+def reprojection_error(state: GBPState, graph: GBPGraph,
+                       bad: torch.Tensor | None = None, group=None):
+    """Mean reprojection residual norm and total cost over active edges
+    whose residual is finite; NaN (not 0) when no edge is valid. ``bad``
+    ([E] bool on the graph's device, ``factor_graph.bad_edge_mask``)
+    excludes known-bad associations. With ``group`` the sums run over
+    every rank's edges."""
+    n_active, sum_norm, cost = _reprojection_sums(state, graph, bad)
+    if group is not None:
+        n_active, sum_norm, cost = comm.all_sum(
+            group, [n_active, sum_norm, cost], torch.float64)
+    return _mean_error(n_active, sum_norm), cost
 
 
 def diagnostics(state: GBPState, graph: GBPGraph, cfg: GBPConfig,
-                with_cam_means: bool = False) -> Diagnostics:
-    err, cost = reprojection_error(state, graph)
+                with_cam_means: bool = False, group=None) -> Diagnostics:
+    """The per-sweep telemetry; with ``group`` its five sums go over every
+    rank's edges in one collective."""
+    n_active, sum_norm, cost = _reprojection_sums(state, graph, None)
     act = state.active > 0
     n_relins = torch.sum(
         (state.damping_count == -cfg.num_undamped_iters) & act)
     n_robust = torch.sum(state.robust & act)
+    if group is not None:
+        n_active, sum_norm, cost, n_relins, n_robust = comm.all_sum(
+            group, [n_active, sum_norm, cost, n_relins, n_robust],
+            torch.float64)
     cam_means = _variable_means(state)[0] if with_cam_means else None
-    return Diagnostics(err, cost, n_relins, n_robust, cam_means)
+    return Diagnostics(_mean_error(n_active, sum_norm), cost, n_relins,
+                       n_robust, cam_means)
 
 
 # ---------------------------------------------------------------------------
 # initialisation and the scheduled iteration
 # ---------------------------------------------------------------------------
 
-def initialise(state: GBPState, graph: GBPGraph, cfg: GBPConfig) -> GBPState:
+def initialise(state: GBPState, graph: GBPGraph, cfg: GBPConfig,
+               group=None, lmk_sharded: bool = False) -> GBPState:
     """Beliefs <- priors (+ current messages), then linearise every
     factor."""
-    state = update_beliefs(state, graph, cfg)
+    state = update_beliefs(state, graph, cfg, group, lmk_sharded)
     return linearise_all(state, graph, cfg)
 
 
 def iteration(state: GBPState, graph: GBPGraph, cfg: GBPConfig,
-              i: int) -> GBPState:
+              i: int, group=None, lmk_sharded: bool = False) -> GBPState:
     """One scheduled iteration: weaken priors on every 2nd iteration
     (flag-gated, so annealing stops after ``steps`` applications), then one
     sweep. As in the JAX package, the sweep's prep step sees beliefs one
@@ -462,15 +511,18 @@ def iteration(state: GBPState, graph: GBPGraph, cfg: GBPConfig,
     if (i + 1) % 2 == 0:
         state = _anneal_priors(state, graph, state.cam_weaken > 0,
                                state.lmk_weaken > 0)
-    return gbp_sweep(state, graph, cfg)
+    return gbp_sweep(state, graph, cfg, group, lmk_sharded)
 
 
 # ---------------------------------------------------------------------------
-# the fixed-point accelerator (single device)
+# the fixed-point accelerator
 # ---------------------------------------------------------------------------
 #
 # The JAX package's chunk-boundary extrapolation (gbp_poplar_tpu/core/
-# gbp.py, _prior_quad .. _accel_step), without its psums. Every decision
+# gbp.py, _prior_quad .. _accel_step), its psums at the same places: the
+# active degrees, and the costs' edge terms (and landmark prior terms with
+# ``lmk_sharded``); the camera means it extrapolates are whole on every
+# rank in both sharding modes, so its rate estimate needs none. Every decision
 # (alignment, trust region, cost guard) is a torch.where on the device, so
 # a chunk boundary adds no host synchronisation. The per-edge gathers stay
 # plain index_select, as the JAX package keeps jnp.take there.
@@ -536,26 +588,53 @@ def _cost_parts(state: GBPState, graph: GBPGraph, cfg: GBPConfig,
 
 
 def map_cost(state: GBPState, graph: GBPGraph, cfg: GBPConfig,
-             bad: torch.Tensor | None = None):
+             bad: torch.Tensor | None = None, group=None,
+             lmk_sharded: bool = False):
     """The MAP objective at the current belief means: the sum of whitened
     Huber losses over active edges plus the Gaussian prior quadratic (up to
     the prior mean's constant, which cancels in comparisons). ``bad`` ([E]
-    bool) excludes known-bad associations from the data term."""
+    bool) excludes known-bad associations from the data term. With
+    ``group`` the data term is summed over the ranks (and the landmark
+    prior term too with ``lmk_sharded``; the camera priors are whole on
+    every rank)."""
     cam_mu, lmk_mu = _variable_means(state)
     mu_c = cam_mu.index_select(1, graph.cam_idx)
     mu_l = lmk_mu.index_select(1, graph.lmk_idx)
     robust, cam_prior, lmk_prior = _cost_parts(
         state, graph, cfg, mu_c, mu_l, cam_mu, lmk_mu, bad)
+    robust, lmk_prior = _ranks_terms(robust, lmk_prior, group, lmk_sharded)
     return robust + cam_prior + lmk_prior
 
 
-def _active_degrees(state: GBPState, graph: GBPGraph, cfg: GBPConfig):
+def _ranks_terms(robust, lmk_prior, group, lmk_sharded: bool):
+    """Cost terms summed over the ranks of ``group`` in one collective:
+    the edges' (``robust``) always, the landmark priors' only with
+    ``lmk_sharded`` (the camera priors are whole on every rank)."""
+    if group is None:
+        return robust, lmk_prior
+    if lmk_sharded:
+        robust, lmk_prior = comm.all_sum(group, [robust, lmk_prior],
+                                         torch.float64)
+        return robust, lmk_prior
+    return comm.all_sum(group, [robust], torch.float64)[0], lmk_prior
+
+
+def _active_degrees(state: GBPState, graph: GBPGraph, cfg: GBPConfig,
+                    group=None, lmk_sharded: bool = False):
     """Number of active edges incident to each variable ([C], [L]), by the
-    deterministic segmented sum (counts of 1.0 are exact in float32)."""
+    deterministic segmented sum (counts of 1.0 are exact in float32), over
+    every rank's edges with ``group`` (a landmark's are all on its rank
+    with ``lmk_sharded``)."""
     act = (state.active > 0).to(state.cam_bel.dtype)[None]
     ref = cfg.kernels == "reference"
-    return (reduce_kernel.segment_sum(act, graph.cam_seg, reference=ref)[0],
-            reduce_kernel.segment_sum(act, graph.lmk_seg, reference=ref)[0])
+    degc = reduce_kernel.segment_sum(act, graph.cam_seg, reference=ref)[0]
+    degl = reduce_kernel.segment_sum(act, graph.lmk_seg, reference=ref)[0]
+    if group is not None:
+        if lmk_sharded:
+            (degc,) = comm.all_sum(group, [degc])
+        else:
+            degc, degl = comm.all_sum(group, [degc, degl])
+    return degc, degl
 
 
 def _mean_shift_etas(state: GBPState, dc_mu, dl_mu, degs):
@@ -621,16 +700,20 @@ def _apply_shift(state: GBPState, dmsg_c, dmsg_l, cam_deta, lmk_deta,
     return state
 
 
-def _combine_costs(parts):
-    """Total each (robust, cam_prior, lmk_prior) triple into a cost vector."""
+def _combine_costs(parts, group=None, lmk_sharded: bool = False):
+    """Total each (robust, cam_prior, lmk_prior) triple into a cost vector;
+    with ``group`` the edge terms of every candidate (and their landmark
+    prior terms with ``lmk_sharded``) are summed over the ranks in one
+    collective."""
     robust = torch.stack([p[0] for p in parts])
     cam_prior = torch.stack([p[1] for p in parts])
     lmk_prior = torch.stack([p[2] for p in parts])
+    robust, lmk_prior = _ranks_terms(robust, lmk_prior, group, lmk_sharded)
     return robust + cam_prior + lmk_prior
 
 
 def _accel_step(state: GBPState, snap, avg, graph: GBPGraph,
-                cfg: GBPConfig, degs):
+                cfg: GBPConfig, degs, group=None, lmk_sharded: bool = False):
     """One fixed-point extrapolation at a chunk boundary (the JAX
     package's ``_accel_step``; its docstring gives the reasoning).
 
@@ -680,7 +763,8 @@ def _accel_step(state: GBPState, snap, avg, graph: GBPGraph,
                            [lmk_mu, cand_l, dmsg_l])
     cost_cur, cost_cand = _combine_costs(
         [_cost_parts(state, graph, cfg, cg[0], lg[0], cam_mu, lmk_mu),
-         _cost_parts(state, graph, cfg, cg[1], lg[1], cand_c, cand_l)])
+         _cost_parts(state, graph, cfg, cg[1], lg[1], cand_c, cand_l)],
+        group, lmk_sharded)
     better = cost_cand <= cost_cur
     state = _apply_shift(state, cg[2], lg[2], cam_deta, lmk_deta,
                          better.to(cam_mu.dtype))
@@ -694,7 +778,8 @@ def _accel_step(state: GBPState, snap, avg, graph: GBPGraph,
 
 
 def _coarse_step(state: GBPState, graph: GBPGraph, cfg: GBPConfig, degs,
-                 cost: torch.Tensor | None = None):
+                 cost: torch.Tensor | None = None, group=None,
+                 lmk_sharded: bool = False):
     """Coarse-space correction (core/coarse.py): solve the MAP increment in
     the per-group rigid subspace and apply it at scale 1 or 0.3, whichever
     lowers the MAP cost most below ``cost`` (the caller's cost of
@@ -703,7 +788,8 @@ def _coarse_step(state: GBPState, graph: GBPGraph, cfg: GBPConfig, degs,
     gather and the chosen one is applied once (``_apply_shift``). Returns
     (state, CoarseStep)."""
     cam_mu, lmk_mu = _variable_means(state)
-    d_cam, d_lmk = coarse.coarse_increment(state, graph, cfg, cam_mu, lmk_mu)
+    d_cam, d_lmk = coarse.coarse_increment(state, graph, cfg, cam_mu, lmk_mu,
+                                           group, lmk_sharded)
     cam_deta, lmk_deta = _mean_shift_etas(state, d_cam, d_lmk, degs)
     dmsg_c, dmsg_l = _msg_shares(cam_deta, lmk_deta, degs)
     scales = (1.0, 0.3)
@@ -720,7 +806,7 @@ def _coarse_step(state: GBPState, graph: GBPGraph, cfg: GBPConfig, degs,
     for i, (cand_c, cand_l) in enumerate(cands):
         parts.append(_cost_parts(state, graph, cfg, cg[mu_groups + i],
                                  lg[mu_groups + i], cand_c, cand_l))
-    costs = _combine_costs(parts)
+    costs = _combine_costs(parts, group, lmk_sharded)
     if cost is None:
         cost, costs = costs[0], costs[1:]
     best = cost
@@ -739,10 +825,13 @@ def _coarse_step(state: GBPState, graph: GBPGraph, cfg: GBPConfig, degs,
 
 def run_gbp(state: GBPState, graph: GBPGraph, cfg: GBPConfig, n_iters: int,
             with_diagnostics: bool = True, iter_offset: int = 0,
-            accel_log: list | None = None, verbose_means: bool = False):
+            accel_log: list | None = None, verbose_means: bool = False,
+            group=None, lmk_sharded: bool = False):
     """Run ``n_iters`` GBP iterations. Returns (state, Diagnostics of
     [n_iters] tensors, or None without diagnostics). The state is updated
-    in place.
+    in place. ``group`` and ``lmk_sharded``: the sharded solvers' rank
+    (see ``update_beliefs``); every rank runs the same schedule, since it
+    is decided from the integer arguments alone.
 
     Weaken flags are only set at a solve's iteration 0, so annealing runs
     for the first ``warm = min(n, 2*steps - iter_offset)`` iterations and
@@ -775,11 +864,14 @@ def run_gbp(state: GBPState, graph: GBPGraph, cfg: GBPConfig, n_iters: int,
                     torch.zeros_like(s.lmk_bel[:LMK_DOF]))
         for j in range(n):
             if anneal_from is not None:
-                s = iteration(s, graph, cfg, anneal_from + j)
+                s = iteration(s, graph, cfg, anneal_from + j, group=group,
+                              lmk_sharded=lmk_sharded)
             else:
-                s = gbp_sweep(s, graph, cfg)
+                s = gbp_sweep(s, graph, cfg, group=group,
+                              lmk_sharded=lmk_sharded)
             if with_diagnostics:
-                diags.append(diagnostics(s, graph, cfg, verbose_means))
+                diags.append(diagnostics(s, graph, cfg, verbose_means,
+                                         group=group))
             if collect:
                 mc, ml = _sanitized_means(s, cfg)
                 sums = (sums[0] + mc, sums[1] + ml)
@@ -792,7 +884,8 @@ def run_gbp(state: GBPState, graph: GBPGraph, cfg: GBPConfig, n_iters: int,
     ce = cfg.accel_every
     if ce > 0 and n2 >= 2 * ce:
         n_chunks = n2 // ce
-        degs = _active_degrees(state, graph, cfg)
+        degs = _active_degrees(state, graph, cfg, group=group,
+                               lmk_sharded=lmk_sharded)
         n_dead = min(n_chunks,
                      max(0, -(-(cfg.accel_start - ce - off2) // ce)))
         if n_dead:
@@ -806,10 +899,12 @@ def run_gbp(state: GBPState, graph: GBPGraph, cfg: GBPConfig, n_iters: int,
         for c in range(n_dead, n_chunks):
             state, sums = sweeps(state, ce, collect=True)
             state, snap, info = _accel_step(
-                state, snap, (sums[0] / ce, sums[1] / ce), graph, cfg, degs)
+                state, snap, (sums[0] / ce, sums[1] / ce), graph, cfg, degs,
+                group=group, lmk_sharded=lmk_sharded)
             if cfg.coarse_groups > 0:
                 state, cinfo = _coarse_step(state, graph, cfg, degs,
-                                            cost=info.cost_kept)
+                                            cost=info.cost_kept, group=group,
+                                            lmk_sharded=lmk_sharded)
                 info = info._replace(coarse=cinfo)
             if accel_log is not None:
                 accel_log.append((off2 + (c + 1) * ce, info))
@@ -822,8 +917,9 @@ def run_gbp(state: GBPState, graph: GBPGraph, cfg: GBPConfig, n_iters: int,
 
 
 def solve(state: GBPState, graph: GBPGraph, cfg: GBPConfig,
-          n_iters: int | None = None):
+          n_iters: int | None = None, group=None, lmk_sharded: bool = False):
     """Full batch-BA solve: initialise + run_gbp."""
     n = cfg.n_iters if n_iters is None else n_iters
-    state = initialise(state, graph, cfg)
-    return run_gbp(state, graph, cfg, n)
+    state = initialise(state, graph, cfg, group, lmk_sharded)
+    return run_gbp(state, graph, cfg, n, group=group,
+                   lmk_sharded=lmk_sharded)

@@ -22,15 +22,20 @@ import torch
 
 from ..config import GBPConfig
 from ..ops import lie, projection, reduce_kernel
-from . import gbp
+from . import comm, gbp
 from .factor_graph import GBPGraph, GBPState
 
 
-def refit_intrinsics(state: GBPState, graph: GBPGraph, cfg: GBPConfig):
+def refit_intrinsics(state: GBPState, graph: GBPGraph, cfg: GBPConfig,
+                     group=None):
     """One damped GN step on every camera's (f, k1, k2) at the current
     means. ``graph.intr`` [3, E] must be present. Returns (new_intr
     [3, E], accepted: 0-d bool tensor); new_intr is graph.intr's values
-    when neither candidate step (scale 1 or 0.25) lowers ``gbp.map_cost``."""
+    when neither candidate step (scale 1 or 0.25) lowers ``gbp.map_cost``.
+    With ``group`` (the edge-sharded solver's rank, parallel/sharding.py)
+    the per-camera sums, the per-camera values and the costs run over
+    every rank's edges, so every rank takes the same step; the JAX driver
+    gets the same from XLA's partitioning of its sharded arrays."""
     if graph.intr is None:
         raise ValueError("refit_intrinsics needs a Snavely problem "
                          "(per-edge intrinsics)")
@@ -68,6 +73,8 @@ def refit_intrinsics(state: GBPState, graph: GBPGraph, cfg: GBPConfig):
     sums = reduce_kernel.segment_sum(
         torch.cat([jtj.reshape(-1, 9), jtr], 1).T.contiguous(),
         graph.cam_seg, reference=cfg.kernels == "reference")    # [12, C]
+    if group is not None:
+        (sums,) = comm.all_sum(group, [sums])
     a = sums[:9].T.reshape(c, 3, 3)
     b = sums[9:].T
 
@@ -88,6 +95,8 @@ def refit_intrinsics(state: GBPState, graph: GBPGraph, cfg: GBPConfig):
     idx = graph.cam_idx.long()[:, None].expand(-1, 3)
     per_cam = torch.full((c, 3), -torch.inf, dtype=a.dtype, device=a.device)
     per_cam = per_cam.scatter_reduce(0, idx, graph.intr.T, "amax")
+    if group is not None:
+        per_cam = comm.all_max(group, per_cam)
     per_cam = torch.where(torch.isfinite(per_cam), per_cam, 0.0)
 
     def candidate(scale: float):
@@ -98,9 +107,9 @@ def refit_intrinsics(state: GBPState, graph: GBPGraph, cfg: GBPConfig):
     def cost_of(per_cam_new):
         intr_new = per_cam_new.index_select(0, graph.cam_idx).T
         return gbp.map_cost(state, dataclasses.replace(graph, intr=intr_new),
-                            cfg)
+                            cfg, group=group)
 
-    cost0 = gbp.map_cost(state, graph, cfg)
+    cost0 = gbp.map_cost(state, graph, cfg, group=group)
     cand1, cand2 = candidate(1.0), candidate(0.25)
     c1, c2 = cost_of(cand1), cost_of(cand2)
     first = c1 <= c2

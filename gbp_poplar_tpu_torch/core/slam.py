@@ -25,7 +25,7 @@ import torch
 
 from ..config import GBPConfig
 from ..ops import planes as pl
-from . import gbp
+from . import comm, gbp
 from .factor_graph import GBPGraph, GBPState
 
 
@@ -42,11 +42,15 @@ def _depth_median(z: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
 
 
 def insert_keyframe(state: GBPState, graph: GBPGraph, cfg: GBPConfig,
-                    new_kf: int, av_depth: float = 1.0) -> GBPState:
+                    new_kf: int, av_depth: float = 1.0, group=None,
+                    lmk_sharded: bool = False) -> GBPState:
     """Activate keyframe ``new_kf``'s edges and hand off the priors, in
     place on ``state`` (which is returned). The JAX package's
     ``insert_keyframe``, operation for operation; ``new_kf`` >= 2, so the
-    padding edges (keyframe id 0) never activate."""
+    padding edges (keyframe id 0) never activate. With ``group`` (a rank of
+    the sharded solvers, parallel/) the new landmarks' depth is the JAX
+    function's sharded one: the mean of the valid depths summed over the
+    ranks, not the median."""
     dtype = state.cam_bel.dtype
     dev = state.cam_bel.device
 
@@ -81,7 +85,13 @@ def insert_keyframe(state: GBPState, graph: GBPGraph, cfg: GBPConfig,
              + r_prev[2][2] * lmk_mu[2] + mu_prev[2])
     valid = ((graph.first_kf < new_kf) & torch.isfinite(z_est)
              & (z_est > 0.1) & (z_est < 100.0))
-    depth = _depth_median(z_est, valid)
+    if group is None:
+        depth = _depth_median(z_est, valid)
+    else:
+        z_sum, n = comm.all_sum(
+            group, [torch.sum(torch.where(valid, z_est, 0.0)),
+                    torch.sum(valid.to(dtype))], torch.float64)
+        depth = z_sum / torch.clamp_min(n, 1.0)
     depth = torch.where(torch.isfinite(depth) & (depth > 0.1), depth,
                         torch.tensor(av_depth, dtype=dtype, device=dev))
 
@@ -109,7 +119,7 @@ def insert_keyframe(state: GBPState, graph: GBPGraph, cfg: GBPConfig,
 
     # refresh the beliefs with the new priors, then linearise the
     # just-activated factors at them
-    state = gbp.update_beliefs(state, graph, cfg)
+    state = gbp.update_beliefs(state, graph, cfg, group, lmk_sharded)
     return gbp.relinearise_masked(state, graph, cfg, newly_active)
 
 

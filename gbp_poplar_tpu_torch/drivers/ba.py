@@ -11,6 +11,11 @@ then 15 warm-started Levenberg-Marquardt/Schur iterations (``--polish``)
 on the exported means. The solve runs on the device in spans of
 ``4 * accel_every`` sweeps; the per-sweep telemetry is read back once per
 span, checked against the NumPy host oracle, and printed.
+
+``--devices N`` runs N ranks (parallel/launch.py), the edges split over
+them (parallel/sharding.py); rank 0 prints and writes what the
+single-device run writes, and its lines are the single-device run's up to
+the order of the per-variable sums.
 """
 
 from __future__ import annotations
@@ -23,7 +28,9 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
+from .. import parallel
 from ..config import GBPConfig
 from ..core import build_graph, gbp, init_state
 from ..core import gauss_newton as gn
@@ -34,7 +41,7 @@ from . import common
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
-        description="GBP bundle adjustment (batch) on one CUDA device")
+        description="GBP bundle adjustment (batch) on CUDA devices")
     common.add_common_args(p)
     p.add_argument("--n_iters", type=int, default=1500)
     p.add_argument("--gn_check", action="store_true",
@@ -60,8 +67,30 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    common.check_devices(args.devices)
     dev = common.select_device()
+    if args.devices > 1:
+        common.check_devices(args.devices, dev)
+        return parallel.run(_rank_main, args.devices, (args,), dev.type)[0]
+    return _solve(args, dev)
+
+
+def _rank_main(rank: parallel.Rank, args) -> int:
+    """One rank of ``--devices N``: the edges split over the ranks
+    (parallel/sharding.py)."""
+    return _solve(args, rank.device, rank.group)
+
+
+def _solve(args, dev: torch.device, group=None) -> int:
+    """The driver on ``dev``; with ``group``, as one rank of the
+    edge-sharded solve. Every rank runs the solve and its collectives;
+    rank 0 alone prints, checks the host oracle, polishes, exports and
+    writes checkpoints, on the whole state gathered from the ranks (as
+    the JAX driver runs them unsharded)."""
+    lead = group is None or dist.get_rank(group) == 0
+
+    def note(msg):
+        if lead:
+            print(msg, file=sys.stderr)
 
     # coarse_groups=16: the per-group rigid coarse correction at the
     # accelerator's chunk boundaries (the JAX driver's default)
@@ -72,36 +101,44 @@ def main(argv=None) -> int:
         cfg = dataclasses.replace(cfg, coarse_groups=problem.n_keyframes)
     problem = priors.apply_init_noise(problem, init_cfg,
                                       k_anchor=cfg.num_anchor_cams)
-    print(f"{args.bal_file}: {problem.n_keyframes} keyframes, "
-          f"{problem.n_points} landmarks, {problem.n_edges} edges",
-          file=sys.stderr)
+    note(f"{args.bal_file}: {problem.n_keyframes} keyframes, "
+         f"{problem.n_points} landmarks, {problem.n_edges} edges")
 
     graph = build_graph(problem, cfg, dev)
     if args.resume:
         state, g2, meta = checkpoint.load_checkpoint(args.resume, dev)
         graph = common.resume_graph(graph, g2)
         start_iter = meta.get("step", 0)
-        print(f"resumed from {args.resume} at iter {start_iter}",
-              file=sys.stderr)
+        note(f"resumed from {args.resume} at iter {start_iter}")
     else:
         state = init_state(problem, cfg, dev)
         start_iter = 0
 
     if args.refine_intrinsics and problem.intrinsics is None:
-        print("error: --refine_intrinsics needs a Snavely/BAL problem "
-              "(per-camera intrinsics); this file uses the shared "
-              "pinhole model", file=sys.stderr)
+        note("error: --refine_intrinsics needs a Snavely/BAL problem "
+             "(per-camera intrinsics); this file uses the shared "
+             "pinhole model")
         return 2
+
+    # the graph the solve runs: the rank's block when sharded (a
+    # checkpoint keeps the whole graph, in the global layout)
+    run_graph = graph
+    if group is not None:
+        solver = parallel.make_sharded_solver(group, cfg)
+        run_graph, state = solver.prepare(graph, state)
+
+    def whole(st):
+        return st if group is None else solver.gather(st, graph.n_edges)
 
     n_refits = [0, 0]               # accepted, attempted
     prof = None
-    if args.profile:
+    if args.profile and lead:
         prof = torch.profiler.profile(activities=_profiler_activities(dev))
         prof.start()
 
     t0 = time.perf_counter()
     if start_iter == 0:
-        state = gbp.initialise(state, graph, cfg)
+        state = gbp.initialise(state, run_graph, cfg, group)
     # the accelerator/coarse chunk path engages only where one run_gbp call
     # spans at least two accelerator chunks: run spans of 4 * accel_every
     # sweeps and print their buffered per-sweep lines after each
@@ -112,8 +149,8 @@ def main(argv=None) -> int:
     t_first_chunk = None
     while i < args.n_iters:
         n = min(chunk, args.n_iters - i)
-        state, diag = gbp.run_gbp(state, graph, cfg, n, iter_offset=i,
-                                  verbose_means=args.v)
+        state, diag = gbp.run_gbp(state, run_graph, cfg, n, iter_offset=i,
+                                  verbose_means=args.v, group=group)
         errs = diag.reproj_err.cpu().numpy()
         costs = diag.cost.cpu().numpy()
         relins = diag.n_relins.cpu().numpy()
@@ -121,7 +158,7 @@ def main(argv=None) -> int:
         v_means = diag.cam_means.cpu().numpy() if args.v else None
         if t_first_chunk is None:
             t_first_chunk = time.perf_counter()   # kernel build happened here
-        for j in range(n):
+        for j in range(n if lead else 0):
             common.print_iteration(i + j, errs[j], costs[j],
                                    int(relins[j]), int(robusts[j]))
             if v_means is not None:
@@ -133,30 +170,38 @@ def main(argv=None) -> int:
         # with the device telemetry): silent when it agrees. The state is
         # past the chunk's boundary steps while errs[-1] is its last
         # sweep, so the bound leaves room for that cost-decreasing jump.
-        h_err, _ = evaluation.numpy_reprojection_error(
-            *analysis.belief_means(state), problem)
-        dev_err = float(errs[-1])
-        if not abs(h_err - dev_err) <= max(0.25, 0.05 * abs(dev_err)):
-            print(f"WARNING: host oracle disagrees at iter {i}: "
-                  f"device {dev_err:.5f} px vs host {h_err:.5f} px",
-                  file=sys.stderr)
+        # Every rank holds the beliefs whole.
+        if lead:
+            h_err, _ = evaluation.numpy_reprojection_error(
+                *analysis.belief_means(state), problem)
+            dev_err = float(errs[-1])
+            if not abs(h_err - dev_err) <= max(0.25, 0.05 * abs(dev_err)):
+                note(f"WARNING: host oracle disagrees at iter {i}: "
+                     f"device {dev_err:.5f} px vs host {h_err:.5f} px")
         if args.refine_intrinsics and i < args.n_iters:
             # block-coordinate intrinsics step, after the oracle check so
-            # that it saw the intrinsics the chunk ran under
-            new_intr, acc = refit_intrinsics(state, graph, cfg)
+            # that it saw the intrinsics the chunk ran under; every rank
+            # takes the same decision (its sums and costs are all-reduced)
+            new_intr, acc = refit_intrinsics(state, run_graph, cfg, group)
             n_refits[1] += 1
             if bool(acc):
-                graph = dataclasses.replace(graph, intr=new_intr)
+                run_graph = dataclasses.replace(run_graph, intr=new_intr)
                 # the stored potentials were linearised under the old
                 # intrinsics: refresh them all at the current means
-                state = gbp.linearise_all(state, graph, cfg)
+                state = gbp.linearise_all(state, run_graph, cfg)
                 n_refits[0] += 1
+                if group is not None:
+                    new_intr = parallel.sharding.gather_cols(
+                        new_intr, group)[:, :graph.n_edges]
+                graph = dataclasses.replace(graph, intr=new_intr)
                 problem.intrinsics = _per_camera_intr(new_intr, graph,
                                                       problem)
         if args.checkpoint and args.checkpoint_every and (
                 i % args.checkpoint_every < chunk):
-            checkpoint.save_checkpoint(args.checkpoint, state, graph,
-                                       step=i, cfg=cfg)
+            full = whole(state)
+            if lead:
+                checkpoint.save_checkpoint(args.checkpoint, full, graph,
+                                           step=i, cfg=cfg)
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     t_end = time.perf_counter()
@@ -167,19 +212,22 @@ def main(argv=None) -> int:
     if steady_iters > 0 and t_end > t_first_chunk:
         msg += (f"; steady-state "
                 f"{steady_iters / (t_end - t_first_chunk):.1f} sweeps/s")
-    print(msg + ")", file=sys.stderr)
+    note(msg + ")")
 
     if args.refine_intrinsics:
-        print(f"intrinsics refits: {n_refits[0]}/{n_refits[1]} accepted",
-              file=sys.stderr)
+        note(f"intrinsics refits: {n_refits[0]}/{n_refits[1]} accepted")
 
     if prof is not None:
         prof.stop()
         os.makedirs(args.profile_dir, exist_ok=True)
         path = os.path.join(args.profile_dir, "trace.json")
         prof.export_chrome_trace(path)
-        print(f"profile written to {path}", file=sys.stderr)
+        note(f"profile written to {path}")
 
+    if args.checkpoint:
+        state = whole(state)
+    if not lead:
+        return 0
     cam_mu, lmk_mu = analysis.belief_means(state)
     if args.polish:
         # GBP resolves the geometry; a few warm-started LM/Schur steps on
@@ -193,32 +241,31 @@ def main(argv=None) -> int:
         moved = float(np.linalg.norm(pol_cam[:, :3] - cam_mu[:, :3],
                                      axis=1).max())
         cam_mu, lmk_mu = pol_cam, res.lmk.cpu().numpy()
-        print(f"polish: reproj {float(res.reproj_err[-1]):.5f} px, "
-              f"max camera movement {moved:.5f} m", file=sys.stderr)
+        note(f"polish: reproj {float(res.reproj_err[-1]):.5f} px, "
+             f"max camera movement {moved:.5f} m")
     # the independent host oracle at the end of the solve (--bad_assoc:
     # the reference's skip list)
     bad = common.parse_bad_assoc(args.bad_assoc)
     o_err, o_cost = evaluation.numpy_reprojection_error(
         cam_mu, lmk_mu, problem, bad_associations=bad or None)
     excl = f"  ({len(bad)} bad associations excluded)" if bad else ""
-    print(f"host oracle: reproj_err {o_err:.5f} px  cost {o_cost:.4f}{excl}",
-          file=sys.stderr)
+    note(f"host oracle: reproj_err {o_err:.5f} px  cost {o_cost:.4f}{excl}")
     if args.v:
         np.set_printoptions(precision=5, suppress=True)
         print("cam means:\n", cam_mu)
     if args.save_traj:
         evaluation.export_tum(args.save_traj, cam_mu)
-        print(f"trajectory written to {args.save_traj}", file=sys.stderr)
+        note(f"trajectory written to {args.save_traj}")
     if args.checkpoint:
         checkpoint.save_checkpoint(args.checkpoint, state, graph,
                                    step=args.n_iters, cfg=cfg)
-        print(f"checkpoint written to {args.checkpoint}", file=sys.stderr)
+        note(f"checkpoint written to {args.checkpoint}")
 
     if args.gn_check:
         res = gn.solve_problem(problem, cfg, dev, n_lm_iters=30)
         ate = evaluation.ate_rmse(cam_mu, res.cam.cpu().numpy())
-        print(f"GN baseline: reproj_err {float(res.reproj_err[-1]):.5f} px, "
-              f"ATE(GBP vs GN) {ate:.6f} m", file=sys.stderr)
+        note(f"GN baseline: reproj_err {float(res.reproj_err[-1]):.5f} px, "
+             f"ATE(GBP vs GN) {ate:.6f} m")
     return 0
 
 

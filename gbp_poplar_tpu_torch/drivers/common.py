@@ -6,7 +6,8 @@ CLIs), so a command line moves between the two packages unchanged. The
 device choice replaces the JAX package's ``GBP_PLATFORM`` platform switch:
 ``GBP_PLATFORM=cpu`` runs on the CPU with the kernels' plain versions;
 otherwise the drivers run on ``cuda:0`` and stop with an error when there
-is no CUDA device.
+is no CUDA device. ``--devices N`` runs N ranks (parallel/launch.py) on
+the CPU or round-robin on the cards.
 """
 
 from __future__ import annotations
@@ -39,12 +40,18 @@ def select_device() -> torch.device:
     return torch.device("cuda", 0)
 
 
-def check_devices(n_devices: int) -> None:
-    """Only one device is ported: ``--devices > 1`` raises."""
-    if n_devices > 1:
-        raise NotImplementedError(
-            f"--devices {n_devices}: sharding over several devices is not "
-            "ported yet (ROADMAP.md, A10); run with --devices 1")
+def check_devices(n_devices: int, dev: torch.device) -> None:
+    """``--devices N`` runs N ranks (parallel/launch.py), each a process
+    with a core of its own: on the CPU, or round-robin on the cards (ranks
+    beyond the card count share one). More ranks than cores is an error
+    that names both numbers; it is never silently reduced."""
+    cores = os.cpu_count() or 1
+    if not 1 <= n_devices <= cores:
+        where = ("the CPU" if dev.type == "cpu" else
+                 f"{torch.cuda.device_count()} CUDA device(s)")
+        raise SystemExit(
+            f"error: --devices {n_devices}: a run on {where} takes 1 to "
+            f"{cores} ranks (one per CPU core of this machine)")
 
 
 def add_common_args(p: argparse.ArgumentParser) -> None:
@@ -76,8 +83,10 @@ def add_common_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--profile_dir",
                    default=os.path.join(tempfile.gettempdir(), "gbp_profile"))
     p.add_argument("--devices", type=int, default=1,
-                   help="shard the edge axis over this many devices (only "
-                        "1 is ported; more raises)")
+                   help="run on this many ranks (parallel/): ba splits the "
+                        "edges over them, slam the landmark map; ranks go "
+                        "round-robin on the CUDA devices, or on the CPU "
+                        "under GBP_PLATFORM=cpu")
     p.add_argument("--save_traj", default=None,
                    help="write final TUM trajectory here")
     p.add_argument("--checkpoint", default=None,

@@ -14,7 +14,15 @@ drift relinearisation 0.05 and Lambda damping, no coarse groups. Each
 segment's per-sweep lines are printed after the segment. Checkpoints are
 written after a keyframe's insertion, with the keyframe (``kf``) and
 ``devices`` in their metadata, so ``--resume`` continues with the next
-segment bit-exactly. One device only: ``--devices > 1`` raises.
+segment bit-exactly.
+
+``--devices N`` runs N ranks (parallel/launch.py), each owning a block of
+the landmark map and its edges (parallel/map_sharding.py): the JAX
+driver's map-partitioned mode, with its one difference from a single
+device, the new landmarks' depth as a mean over the ranks instead of a
+median. Its checkpoints hold the partitioned layout whole, with
+``devices`` in their metadata, and resume at the same ``--devices`` (a
+JAX driver's too); another count exits with 2.
 """
 
 from __future__ import annotations
@@ -27,7 +35,9 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
+from .. import parallel
 from ..core import build_graph, gauss_newton as gn, init_state, slam
 from ..utils import analysis, balio, checkpoint, evaluation
 from ..utils import flags as flags_lib, priors
@@ -37,7 +47,7 @@ from .ba import _polish_problem
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
-        description="Incremental GBP SLAM on one CUDA device")
+        description="Incremental GBP SLAM on CUDA devices")
     common.add_common_args(p)
     p.add_argument("--iters_between_kfs", type=int, default=700)
     p.add_argument("--polish", action="store_true",
@@ -75,41 +85,83 @@ def save_segment(path: str, state, graph, cfg, k: int, ibk: int,
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    common.check_devices(args.devices)
     dev = common.select_device()
+    if args.devices > 1:
+        common.check_devices(args.devices, dev)
+        return parallel.run(_rank_main, args.devices, (args,), dev.type)[0]
+    return _solve(args, dev)
+
+
+def _rank_main(rank: parallel.Rank, args) -> int:
+    """One rank of ``--devices N``: the landmark map split over the ranks
+    (parallel/map_sharding.py)."""
+    return _solve(args, rank.device, rank.group)
+
+
+def _solve(args, dev: torch.device, group=None) -> int:
+    """The driver on ``dev``; with ``group``, as one rank of the
+    map-partitioned solve, whose checkpoints hold the partitioned layout
+    whole (the JAX driver's). Rank 0 alone prints, polishes, exports and
+    writes checkpoints, on the state gathered from the ranks."""
+    lead = group is None or dist.get_rank(group) == 0
+
+    def note(msg):
+        if lead:
+            print(msg, file=sys.stderr)
+
     cfg, init_cfg = config_from_args(args)
 
     problem = balio.load_bal(args.bal_file)
     # refused before any init helper (av_depth_init is pinhole-only)
     if problem.intrinsics is not None:
-        print("error: incremental SLAM needs a temporally ordered TUM-"
-              "variant sequence; BAL-dataset (Snavely-model) problems have "
-              "no keyframe order — use the batch `ba` driver", file=sys.stderr)
+        note("error: incremental SLAM needs a temporally ordered TUM-"
+             "variant sequence; BAL-dataset (Snavely-model) problems have "
+             "no keyframe order — use the batch `ba` driver")
         return 2
     problem = priors.apply_init_noise(problem, init_cfg,
                                       k_anchor=cfg.num_anchor_cams)
     ibk = args.iters_between_kfs
-    print(f"{args.bal_file}: {problem.n_keyframes} keyframes, "
-          f"{problem.n_points} landmarks, {problem.n_edges} edges "
-          f"({ibk} iters/keyframe)", file=sys.stderr)
+    note(f"{args.bal_file}: {problem.n_keyframes} keyframes, "
+         f"{problem.n_points} landmarks, {problem.n_edges} edges "
+         f"({ibk} iters/keyframe)")
 
     graph = build_graph(problem, cfg, dev)
     start_kf = 1
+    partitioned = False
     if args.resume:
         state, g2, meta = checkpoint.load_checkpoint(args.resume, dev)
         ck_devices = meta.get("devices", 1)
         if ck_devices != args.devices:
-            print(f"error: checkpoint was written with --devices "
-                  f"{ck_devices}, run has --devices {args.devices}",
-                  file=sys.stderr)
+            note(f"error: checkpoint was written with --devices "
+                 f"{ck_devices}, run has --devices {args.devices}")
             return 2
-        graph = common.resume_graph(graph, g2)
+        # a map-sharded checkpoint holds the partitioned layout, whose
+        # graph is the checkpoint's own
+        partitioned = ck_devices > 1
+        graph = g2 if partitioned else common.resume_graph(graph, g2)
         start_kf = meta.get("kf", meta.get("step", 0) // ibk + 1)
-        print(f"resumed from {args.resume} at keyframe {start_kf}",
-              file=sys.stderr)
+        note(f"resumed from {args.resume} at keyframe {start_kf}")
     else:
         flags = flags_lib.create_flags(problem, cfg.steps)
         state = init_state(problem, cfg, dev, flags=flags)
+
+    run_graph, steps = graph, {}
+    if group is not None:
+        # the rank's block; checkpoints keep the partitioned layout whole
+        solver = parallel.make_map_sharded_solver(group, cfg)
+        if not partitioned:
+            graph, state = parallel.partition_by_landmark(graph, state,
+                                                          args.devices)
+        run_graph, state = solver.prepare(graph, state, partitioned=True)
+        # the JAX driver's explicit warm-up is run_gbp's own at offset 0
+        steps = dict(
+            runner=lambda s: solver.run(s, run_graph, ibk),
+            inserter=lambda s, k: solver.insert_keyframe(s, run_graph, k,
+                                                         args.avdepth),
+            initialiser=lambda s: solver.initialise(s, run_graph))
+
+    def whole(st):
+        return st if group is None else solver.gather(st)
 
     step = {"i": (start_kf - 1) * ibk, "since_save": 0, "t_first": None}
 
@@ -121,16 +173,17 @@ def main(argv=None) -> int:
         if step["t_first"] is None:
             step["t_first"] = time.perf_counter()   # kernel build happened
         stride = max(1, args.print_every)
-        for j in range(0, errs.shape[0], stride):
+        for j in range(0, errs.shape[0] if lead else 0, stride):
             common.print_iteration(step["i"] + j, errs[j], costs[j],
                                    int(relins[j]), int(robusts[j]))
         step["i"] += errs.shape[0]
         if k + 1 < problem.n_keyframes:
-            print(f"-- keyframe {k + 1} inserted --", file=sys.stderr)
+            note(f"-- keyframe {k + 1} inserted --")
 
     def segment_callback(k, st):
-        if args.v:
-            # the belief stream at segment cadence
+        if args.v and lead:
+            # the belief stream at segment cadence (every rank holds the
+            # keyframes whole)
             v_cam, _ = analysis.belief_means(st)
             np.set_printoptions(precision=5, suppress=True)
             print(f"beliefs (cam means) after keyframe {k}:\n{v_cam}",
@@ -140,14 +193,17 @@ def main(argv=None) -> int:
         step["since_save"] += ibk
         if step["since_save"] >= args.checkpoint_every:
             step["since_save"] = 0
-            save_segment(args.checkpoint, st, graph, cfg, k, ibk,
-                         args.devices)
+            full = whole(st)
+            if lead:
+                save_segment(args.checkpoint, full, graph, cfg, k, ibk,
+                             args.devices)
 
     t0 = time.perf_counter()
     result = slam.solve_slam(
-        state, graph, cfg, n_keyframes=problem.n_keyframes,
-        iters_between_kfs=ibk, av_depth=args.avdepth, progress=progress,
-        start_kf=start_kf, segment_callback=segment_callback)
+        state, run_graph, cfg,
+        n_keyframes=problem.n_keyframes, iters_between_kfs=ibk,
+        av_depth=args.avdepth, progress=progress, start_kf=start_kf,
+        segment_callback=segment_callback, **steps)
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     t_end = time.perf_counter()
@@ -158,9 +214,15 @@ def main(argv=None) -> int:
         msg += (f" (incl. kernel build; steady-state "
                 f"{(total_iters - ibk) / (t_end - step['t_first']):.1f} "
                 "sweeps/s)")
-    print(msg, file=sys.stderr)
+    note(msg)
 
-    cam_mu, lmk_mu = analysis.belief_means(result.state)
+    final = whole(result.state)
+    if not lead:
+        return 0
+    cam_mu, lmk_mu = analysis.belief_means(final)
+    # a partitioned landmark axis is the global order and then the dummy
+    # landmarks: the problem's landmarks are its first n_points
+    lmk_mu = lmk_mu[:problem.n_points]
     if args.polish:
         # warm-started LM/Schur against the batch annealed-prior objective:
         # a standard post-SLAM global bundle adjustment
@@ -172,29 +234,27 @@ def main(argv=None) -> int:
         moved = float(np.linalg.norm(pol_cam[:, :3] - cam_mu[:, :3],
                                      axis=1).max())
         cam_mu, lmk_mu = pol_cam, res.lmk.cpu().numpy()
-        print(f"polish: reproj {float(res.reproj_err[-1]):.5f} px, "
-              f"max camera movement {moved:.5f} m", file=sys.stderr)
+        note(f"polish: reproj {float(res.reproj_err[-1]):.5f} px, "
+             f"max camera movement {moved:.5f} m")
     # the independent host oracle (--bad_assoc: the reference's skip list)
     bad = common.parse_bad_assoc(args.bad_assoc)
     o_err, o_cost = evaluation.numpy_reprojection_error(
         cam_mu, lmk_mu, problem, bad_associations=bad or None)
     excl = f"  ({len(bad)} bad associations excluded)" if bad else ""
-    print(f"host oracle: reproj_err {o_err:.5f} px  cost {o_cost:.4f}{excl}",
-          file=sys.stderr)
+    note(f"host oracle: reproj_err {o_err:.5f} px  cost {o_cost:.4f}{excl}")
     if args.v:
         np.set_printoptions(precision=5, suppress=True)
         print("cam means:\n", cam_mu)
     if args.save_traj:
         evaluation.export_tum(args.save_traj, cam_mu)
-        print(f"trajectory written to {args.save_traj}", file=sys.stderr)
+        note(f"trajectory written to {args.save_traj}")
     if args.checkpoint:
-        save_segment(args.checkpoint, result.state, graph, cfg,
+        save_segment(args.checkpoint, final, graph, cfg,
                      problem.n_keyframes - 1, ibk, args.devices)
-        print(f"checkpoint written to {args.checkpoint}", file=sys.stderr)
+        note(f"checkpoint written to {args.checkpoint}")
     if result.reproj_err.shape[0]:
         final_err = result.reproj_err[-1, -10:].mean()
-        print(f"final reprojection error: {final_err:.5f} px",
-              file=sys.stderr)
+        note(f"final reprojection error: {final_err:.5f} px")
     return 0
 
 

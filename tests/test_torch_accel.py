@@ -80,10 +80,10 @@ def boundaries():
     steps = []
     real = gbp._accel_step
 
-    def spy(state, snap, avg, graph, cfg_, degs):
+    def spy(state, snap, avg, graph, cfg_, degs, **kw):
         rec = (fg.state_to_numpy(state), [x.numpy().copy() for x in snap],
                [x.numpy().copy() for x in avg])
-        out = real(state, snap, avg, graph, cfg_, degs)
+        out = real(state, snap, avg, graph, cfg_, degs, **kw)
         steps.append(rec + (out[2],))
         return out
 
@@ -253,9 +253,9 @@ def test_chunk_means_equal_under_both_pipelines(monkeypatch):
     def run(fused):
         avgs = seen.setdefault(fused, [])
 
-        def spy(state, snap, avg, graph, cfg_, degs):
+        def spy(state, snap, avg, graph, cfg_, degs, **kw):
             avgs.append([x.clone() for x in avg])
-            return real(state, snap, avg, graph, cfg_, degs)
+            return real(state, snap, avg, graph, cfg_, degs, **kw)
 
         monkeypatch.setattr(gbp, "_accel_step", spy)
         cfg = GBPConfig(edge_pad_multiple=PAD, fused=fused, **ACCEL)

@@ -312,3 +312,38 @@ def test_weaken_priors_and_bad_mask_on_card(cuda_device):
     o_err, _ = evaluation.numpy_reprojection_error(cam_mu, lmk_mu, prob,
                                                    bad_associations=ids)
     assert err.item() != err_all.item() and abs(o_err - err.item()) < 1e-3
+
+
+def _nccl_solve(rank):
+    """One NCCL rank: the edge-sharded solve of the coarse test problem
+    (parallel/sharding.py), its gathered state and errors on the host."""
+    from gbp_poplar_tpu_torch import parallel
+
+    prob = balio.synthetic_problem(n_keyframes=6, n_points=60, seed=0,
+                                   pixel_noise=0.5)
+    cfg = GBPConfig(coarse_groups=3)
+    graph = fg.build_graph(prob, cfg, rank.device)
+    solver = parallel.make_sharded_solver(rank.group, cfg)
+    g, s = solver.prepare(graph, fg.init_state(prob, cfg, rank.device))
+    s, diag = solver.solve(s, g, 200)
+    full = solver.gather(s, graph.n_edges)
+    return fg.state_to_numpy(full), diag.reproj_err.cpu()
+
+
+@pytest.mark.cuda
+def test_nccl_one_rank_equals_single_device_on_card(cuda_device):
+    """The edge-sharded solve at world size 1 over NCCL (one all_reduce
+    per reduction, the prior added after it) is the single-device solve
+    to the bit: 200 sweeps with the accelerator and the coarse
+    corrector."""
+    from gbp_poplar_tpu_torch import parallel
+
+    (fields, err), = parallel.run(_nccl_solve, 1, device_type="cuda")
+    prob = balio.synthetic_problem(n_keyframes=6, n_points=60, seed=0,
+                                   pixel_noise=0.5)
+    cfg = GBPConfig(coarse_groups=3)
+    s, diag = gbp.solve(fg.init_state(prob, cfg, cuda_device),
+                        fg.build_graph(prob, cfg, cuda_device), cfg, 200)
+    assert torch.equal(err, diag.reproj_err.cpu())
+    for k, v in fg.state_to_numpy(s).items():
+        assert np.array_equal(v, fields[k], equal_nan=True), k

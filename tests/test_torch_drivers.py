@@ -234,9 +234,20 @@ def test_refine_intrinsics_on_a_snavely_problem(tmp_path, capsys):
     assert rc == 2 and "pinhole" in err
 
 
-def test_devices_above_one_raise(tiny_bal):
-    with pytest.raises(NotImplementedError, match="A10"):
-        ba.main(["--bal_file", tiny_bal, "--devices", "2"])
+def test_devices_above_one_raise(tiny_bal, capsys):
+    """--devices 2 runs two ranks (tests/test_torch_sharded_drivers.py
+    holds them to --devices 1); more ranks than the machine has cores is
+    an error that names both numbers, never a quiet reduction."""
+    import os
+
+    too_many = (os.cpu_count() or 1) + 1
+    with pytest.raises(SystemExit, match=f"--devices {too_many}: .* 1 to "
+                                         f"{too_many - 1} ranks"):
+        ba.main(["--bal_file", tiny_bal, "--devices", str(too_many)])
+    rc, out, err = _run(capsys, ba.main, "--bal_file", tiny_bal, "--n_iters",
+                        20, "--no_polish", "--devices", 2)
+    assert rc == 0, err[-2000:]
+    assert "launch: 2 ranks" in err and len(_iters(out)) == 20
 
 
 def test_no_cuda_device_is_an_error(tiny_bal, monkeypatch):
@@ -425,8 +436,8 @@ def test_slam_resume_is_bit_exact(slam_runs, slam_bal, tmp_path, capsys):
 
 def test_slam_refusals(slam_runs, slam_bal, tmp_path, capsys):
     """A checkpoint written with another --devices exits with 2, so does a
-    Snavely (BAL-dataset) problem; --devices 2 raises; without a card and
-    without GBP_PLATFORM=cpu the driver stops."""
+    Snavely (BAL-dataset) problem; without a card and without
+    GBP_PLATFORM=cpu the driver stops."""
     import shutil
 
     from gbp_poplar_tpu_torch.drivers import slam
@@ -441,8 +452,6 @@ def test_slam_refusals(slam_runs, slam_bal, tmp_path, capsys):
     balio.save_bal(snavely, balio.synthetic_problem_snavely(pixel_noise=0.5))
     rc, _, err = _run(capsys, slam.main, "--bal_file", snavely)
     assert rc == 2 and "batch `ba` driver" in err
-    with pytest.raises(NotImplementedError, match="A10"):
-        slam.main(["--bal_file", slam_bal, "--devices", "2"])
     with pytest.MonkeyPatch.context() as mp:
         mp.delenv("GBP_PLATFORM")
         mp.setattr(torch.cuda, "is_available", lambda: False)
