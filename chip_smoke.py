@@ -14,20 +14,24 @@ the final ``ok`` line:
      card: the table build (H2: each kind alone and both in one launch)
      and the segmented sum (H3) on random inputs and at the Ladybug shape;
      one fused sweep (H1) on the small pinhole problem, the Snavely problem
-     and the Ladybug-shape state after initialise + 20 sweeps; then each
-     kernel's time beside its plain version's, its bound (the larger of its
-     bytes over 3.35 TB/s and its operations over 67 TFLOP/s) and, for H3,
-     the one library call that computes the same function
-     (``torch.index_add``), per variable kind; H2 per kind and both kinds
-     by the profiler's device time per launch beside the events' time per
-     host call;
+     and the Ladybug-shape state after initialise + 20 sweeps; the
+     telemetry sums (H6) on that state, without and with 1,000 edges
+     marked bad, and on a copy with singular beliefs; then each kernel's
+     time beside its plain version's, its bound (the larger of its bytes
+     over 3.35 TB/s and its operations over 67 TFLOP/s) and, for H3, the
+     one library call that computes the same function
+     (``torch.index_add``), per variable kind; H2 per kind and both kinds,
+     and H6's two passes, by the profiler's device time beside the events'
+     time per host call;
   4. the fused main path at the Ladybug shape (synthetic_problem_large(
      1723, 156000, 7): 1,092,000 edges, 1,092,608 padded), reference
      schedule (accel_every=0): build_graph / init_state on the card,
      initialise, run_gbp(200) with diagnostics, the launch counts of every
      kernel, the same 200 sweeps with kernels="reference", ms/sweep of
-     both, and peak device memory; then ``solve_ba`` on the small pinhole
-     problem with the library defaults (``GBPConfig()``);
+     both, with and without diagnostics, one diagnostics call's aten
+     operations and device launches by the profiler (plain version and
+     H2 + H6), and peak device memory; then ``solve_ba`` on the small
+     pinhole problem with the library defaults (``GBPConfig()``);
   5. the Venice shape (synthetic_problem_large(1778, 994000, 5): 4,970,000
      edges, the shape of BAL Venice-1778) with its cameras relabelled by a
      random permutation, as in an unordered photo collection, and its
@@ -35,7 +39,8 @@ the final ``ok`` line:
      index_select on its camera and landmark indices (bit-identical); one
      unfused sweep (H4) against its plain version on the pinhole and
      Snavely problems and on the Venice state after initialise + 20
-     sweeps, and against the fused sweep (H1) on that state;
+     sweeps, and against the fused sweep (H1) on that state; H6 on that
+     state, without and with 1,000 edges marked bad;
   6. the unfused main path at the Venice shape: GBPConfig(fused=False),
      every other default (accelerator every 50 sweeps from sweep 150),
      300 sweeps with diagnostics: the error at marks, the accelerator's
@@ -66,10 +71,11 @@ the final ``ok`` line:
      config (relinearise every sweep, the one-sided depth guard, the
      rescue after 300 sweeps), 700 sweeps per keyframe: (a) 7 segments
      with diagnostics, the error at each insertion, the first 3 against
-     kernels="reference"; (b) one sweep right after an insertion, H1 and
-     H4 bit-identical to their plain versions and to each other under the
-     gn flags; (c) the driver's checkpoint at keyframe 6 resumed with
-     start_kf, its diagnostics equal to (a)'s to the bit; (d) all 62
+     kernels="reference", run twice to the same bits; (b) one sweep right
+     after an insertion, H1 and H4 bit-identical to their plain versions
+     and to each other under the gn flags, and H6 on that state; (c) the
+     driver's checkpoint at keyframe 6 resumed with start_kf, its
+     diagnostics equal to (a)'s to the bit; (d) all 62
      keyframes without diagnostics: sweeps/s including insertion, the
      final error (< 3.0 px) beside the JAX package's, ms/sweep with and
      without diagnostics; (e) the slam driver in process at 150 sweeps per
@@ -92,22 +98,23 @@ the final ``ok`` line:
      initialise + 20 sweeps, against the single-device run to the bit;
      ms/sweep without diagnostics of one device, the edge-sharded and the
      map-sharded solver at world size 1, in turns, and each mode's
-     all-reduce alone; (b) two gloo ranks sharing the card, edge-sharded
-     at the Ladybug shape (546,304 edges a rank) and map-sharded at the
+     all-reduce alone; (b) two gloo ranks sharing the card, edge-sharded at
+     the Ladybug shape (546,304 edges a rank) and map-sharded at the
      fr1desk shape: initialise + one sweep of each pipeline in each, the
-     edge fields bit-identical to the single-device sweep and the beliefs
-     within 1e-5 of sum |terms|, then the ba driver's config for 400
-     sweeps edge-sharded, its final error within 0.005 px of phase 9's, and the time of
-     the per-sweep all-reduce (5.80 MB at this shape, 6.7 KB for the
-     fr1desk shape's camera sums); (c) the slam driver's ranks at
-     --devices 2 (map-sharded, two gloo ranks on the card) at the fr1desk
-     shape, 50 sweeps a keyframe (phase 12 (e) runs 150), --polish and
-     --checkpoint, the final error below 3.0 px beside phase 12 (e)'s,
-     and ``drivers.slam.main``'s
-     resume from the final checkpoint to the same trajectory. Every rank
-     reports its launch counts, and every rank must have launched H1-H3 on
-     the card (H4 and H5 too in (b)). The times of (b) and (c) come from
-     two ranks contending for one card: they are not scaling numbers.
+     edge fields bit-identical to the single-device sweep, the beliefs
+     within 1e-5 of sum |terms| and the five telemetry sums over both ranks
+     (H6 and plain) against one device's, then the ba driver's config for
+     400 sweeps edge-sharded, its final error within 0.005 px of phase 9's,
+     and the time of the per-sweep all-reduce (5.80 MB at this shape, 6.7
+     KB for the fr1desk shape's camera sums); (c) the slam driver's ranks
+     at --devices 2 (map-sharded, two gloo ranks on the card) at the
+     fr1desk shape, 50 sweeps a keyframe (phase 12 (e) runs 150), --polish
+     and --checkpoint, the final error below 3.0 px beside phase 12 (e)'s,
+     and ``drivers.slam.main``'s resume from the final checkpoint to the
+     same trajectory. Every rank reports its launch counts, and every rank
+     must have launched H1-H3 and H6 on the card (H4 and H5 too in (b)).
+     The times of (b) and (c) come from two ranks contending for one card:
+     they are not scaling numbers.
 
 The last lines are one JSON object of per-kernel results (launches on
 the main paths, largest difference from the plain version, kernel, plain
@@ -143,8 +150,8 @@ TIMED_SWEEPS = 20
 # agree to the last bit except where the two take a borderline decision
 # differently; the bounds leave room for that and nothing else.
 TABLE_RTOL = 1e-5          # table means, relative to 1 + |mean|
-REDUCE_RTOL = 1e-5         # sums, relative to the sum of |terms| (the plain
-                           # version adds with atomics in run-dependent order)
+REDUCE_RTOL = 1e-5         # sums, relative to the sum of |terms| (kernel and
+                           # plain version each add in their own fixed order)
 SWEEP_RTOL = 1e-4          # edge fields, relative to 1 + max |field|
 SWEEP_FLIP_FRAC = 1e-3     # lanes whose discrete outputs may differ
 MAIN_AGREE_PX = 0.05       # final error: kernels vs reference, px ...
@@ -176,6 +183,7 @@ JAX_SLAM_FINAL_ERR = 0.813590
 
 # the library utilities (phase 13)
 UTILS_BAD_IDS = 1000       # (c): random original edge ids marked bad
+                           # (also H6's masked cases, phases 3, 5, 12)
 BAD_ORACLE_PX = 1e-3       # (c): masked error against the host oracle
 KL_GAP_FACTOR = 4.0        # (e): card vs CPU, against float32's own gap
 
@@ -302,12 +310,13 @@ def time_reduce_sides(state, graph, n_real: int, card: str) -> float:
     return lib_total
 
 
-def device_ms(fn, reps: int, kernel: str) -> float:
+def device_ms(fn, reps: int, kernel: str, per_call: bool = False) -> float:
     """Mean device time (ms) per launch of the kernels whose names contain
-    ``kernel``, over ``reps`` calls of ``fn()``, by torch.profiler, after
-    one warm-up call: the kernel's own time, whatever the host's pace. A
-    window whose kernel records the profiler lost (seen once on an H100,
-    PERF.md) is profiled again, up to three times."""
+    ``kernel`` (``per_call``: per call of ``fn``, all its launches), over
+    ``reps`` calls of ``fn()``, by torch.profiler, after one warm-up call:
+    the kernel's own time, whatever the host's pace. A window whose kernel
+    records the profiler lost (seen once on an H100, PERF.md) is profiled
+    again, up to three times."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -324,7 +333,7 @@ def device_ms(fn, reps: int, kernel: str) -> float:
             break
     check(bool(evs), f"the profiler saw no {kernel} launch")
     return (sum(ev.device_time_total for ev in evs)
-            / sum(ev.count for ev in evs) / 1e3)
+            / (reps if per_call else sum(ev.count for ev in evs)) / 1e3)
 
 
 def time_tables(cam_bel, lmk_bel, where: str, card: str):
@@ -357,6 +366,93 @@ def time_tables(cam_bel, lmk_bel, where: str, card: str):
               f"events {ev:.4f} ms per host call; bound {b:.4f} ms by {by} "
               f"({b / dev:.0%} of it reached) ({card})")
     return dev, cuda_ms(lambda: fn(True), 5), b, by
+
+
+def diag_bytes(graph, bad) -> int:
+    """Bytes H6 must move: per edge its two ids, measurement, activity,
+    damping counter and robust flag (and intrinsics, bad flag), per
+    variable the mean and flag of its table row, the five float64
+    results."""
+    per_edge = (4 + 4 + 8 + 4 + 4 + 1 + (12 if graph.intr is not None else 0)
+                + (1 if bad is not None else 0))
+    return (graph.n_edges * per_edge + 4 * 7 * graph.n_keyframes
+            + 4 * 4 * graph.n_points + 8 * 5)
+
+
+def bad_edges(prob, cfg, dev):
+    """An [E] mask of UTILS_BAD_IDS random original edges (seed 13), as
+    ``factor_graph.bad_edge_mask`` builds it."""
+    import numpy as np
+    import torch
+
+    from gbp_poplar_tpu_torch.core import factor_graph as fg
+
+    ids = np.random.default_rng(13).choice(prob.n_edges, UTILS_BAD_IDS,
+                                           replace=False)
+    return torch.as_tensor(fg.bad_edge_mask(prob, ids, cfg), device=dev)
+
+
+def singular_beliefs(state, graph):
+    """A copy of ``state`` with singular beliefs: 50 observed landmarks'
+    Lambda zeroed (their means overflow) and camera 3's eta NaN."""
+    st = state.clone()
+    seen = graph.lmk_idx[state.active > 0].unique()
+    st.lmk_bel[3:, seen[:50]] = 0.0
+    st.cam_bel[0, 3] = float("nan")
+    return st
+
+
+def diag_cases(label, state, graph, cfg, bad) -> float:
+    """H6 (ops/diag_kernel.edge_sums) against its plain version on
+    ``state``, without and with the mask ``bad``: the counts equal, the
+    float sums within REDUCE_RTOL of the sum of |terms| (the sums
+    themselves: the terms are >= 0), the same bits on a rerun. Returns
+    the largest difference of a float sum."""
+    import torch
+
+    from gbp_poplar_tpu_torch.ops import diag_kernel
+
+    n = cfg.num_undamped_iters
+    worst = 0.0
+    for mask in (None, bad):
+        k = diag_kernel.edge_sums(state, graph, n, mask)
+        r = diag_kernel.edge_sums(state, graph, n, mask, reference=True)
+        again = torch.equal(k, diag_kernel.edge_sums(state, graph, n, mask))
+        counts = same(k[[0, 3, 4]], r[[0, 3, 4]])
+        diff = (k[1:3] - r[1:3]).abs()
+        rel = (diff / r[1:3].clamp_min(1e-30)).max().item()
+        worst = max(worst, diff.max().item())
+        print(f"[H6] {label}"
+              + ("" if mask is None else f", {int(mask.sum())} edges bad")
+              + f": {int(r[0])} valid edges, {int(r[3])} relinearised, "
+              f"{int(r[4])} robust, counts equal: {counts}; sum of norms "
+              f"{k[1].item():.6f} (plain {r[1].item():.6f}), cost "
+              f"{k[2].item():.6f} (plain {r[2].item():.6f}), max relative "
+              f"to sum |terms| {rel:.3e} (bound {REDUCE_RTOL}); "
+              f"bit-identical on rerun: {again}")
+        check(counts and again and rel <= REDUCE_RTOL,
+              f"H6 {label}: kernel and plain version differ")
+    return worst
+
+
+def op_counts(fn) -> tuple[int, int]:
+    """(top-level aten operations, device launches) of one call of
+    ``fn()``, by torch.profiler, after a warm-up call."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    evs = prof.events()
+    aten = sum(1 for ev in evs if ev.device_type == DeviceType.CPU
+               and ev.cpu_parent is None and ev.name.startswith("aten::"))
+    launches = sum(1 for ev in evs if ev.device_type == DeviceType.CUDA)
+    return aten, launches
 
 
 def smi_line() -> str:
@@ -704,7 +800,7 @@ def slam_phase(dev, reset_counts, read_counts, card, compare_sweeps):
     sweeps per keyframe with --polish, --save_traj and --checkpoint, its
     resume from the final checkpoint (the same trajectory), and the same
     run without diagnostics. Returns (launch counts of the main paths,
-    largest H1 and H4 difference from plain, (e)'s final error)."""
+    largest H1, H4 and H6 difference from plain, (e)'s final error)."""
     import tempfile
 
     import torch
@@ -809,16 +905,25 @@ def _slam_parts(run, tmp, raw, prob, graph, cfg, dev, reset_counts,
           f"applied; launches {launches_a}")
     check(bool(np.isfinite(res_k.reproj_err).all()), "SLAM: non-finite error")
     check(len(log_k) > 0, "SLAM: no live accelerator step")
-    check(launches_a["sweep"] == n_a and launches_a["table"] >= n_a
-          and launches_a["reduce"] >= 2 * n_a,
-          "SLAM (a) did not go through H1, H2, H3 every sweep")
-    res_r, _, wall_r = run(dataclasses.replace(cfg, kernels="reference"),
-                           SLAM_REF_SEGMENTS + 1)
+    check(launches_a["sweep"] == n_a and launches_a["table"] >= 2 * n_a
+          and launches_a["reduce"] >= 2 * n_a and launches_a["diag"] == n_a,
+          "SLAM (a) did not go through H1, H2, H3, H6 every sweep")
+    ref = dataclasses.replace(cfg, kernels="reference")
+    res_r, _, wall_r = run(ref, SLAM_REF_SEGMENTS + 1)
     for seg in range(SLAM_REF_SEGMENTS):
         agree(f"[slam] (a) segment {seg + 1}", res_k.reproj_err[seg],
               res_r.reproj_err[seg])
     print(f"[slam] (a) reference: {SLAM_REF_SEGMENTS} segments in "
           f"{wall_r:.1f} s")
+    # the plain run again: its sums add in a fixed order on the card too
+    res_r2, _, _ = run(ref, SLAM_REF_SEGMENTS + 1)
+    bits = all(np.array_equal(getattr(res_r, f), getattr(res_r2, f),
+                              equal_nan=True)
+               for f in ("reproj_err", "cost", "n_relins", "n_robust"))
+    print(f"[slam] (a) reference run twice: the per-sweep diagnostics of "
+          f"all {SLAM_REF_SEGMENTS} segments equal to the bit: {bits}")
+    check(bits, "SLAM (a): the plain run does not repeat")
+    del res_r2
 
     # (b) one sweep under the gn flags right after an insertion
     st = kept.pop("state")
@@ -833,6 +938,8 @@ def _slam_parts(run, tmp, raw, prob, graph, cfg, dev, reset_counts,
     label = "SLAM, after keyframe 3's insertion, gn flags"
     h1_err = compare_sweeps("H1", label, graph, s1, s1r, "plain")
     h4_err = compare_sweeps("H4", label, graph, s4, s4r, "plain")
+    h6_err = diag_cases("SLAM, after keyframe 3's insertion", st, graph, cfg,
+                        bad_edges(prob, cfg, dev))
     y_cf, _ = planes.w2c_apply(list(s1r.mu[:6]), list(s1r.mu[6:]))
     act = st.active > 0
     behind = act & (y_cf[2] < -cfg.min_depth)
@@ -956,7 +1063,7 @@ def _slam_parts(run, tmp, raw, prob, graph, cfg, dev, reset_counts,
     del res_e
     final_e = float(err1.split("final reprojection error: ")[1].split()[0])
     return ([launches_a, launches_c, launches_d, launches_e],
-            h1_err, h4_err, final_e)
+            h1_err, h4_err, h6_err, final_e)
 
 
 def state_to(state, device):
@@ -998,7 +1105,7 @@ def utils_phase(held, bal, dev, reset_counts, read_counts, card):
             for _, g, st, c in cases]
     launches = read_counts()
     check(launches == {"sweep": 0, "table": 0, "reduce": 4,
-                       "sweep_planes": 0, "gather": 0},
+                       "sweep_planes": 0, "gather": 0, "diag": 0},
           "(a) weaken_priors did not go through H3 once per kind")
     h3_err = 0.0
     for (label, g, st, c), wk in zip(cases, weak):
@@ -1191,13 +1298,13 @@ def utils_phase(held, bal, dev, reset_counts, read_counts, card):
 
 def kernel_wrappers() -> dict:
     """Each kernel's wrapper, whose ``launches`` counts its launches."""
-    from gbp_poplar_tpu_torch.ops import reduce_kernel, sweep_kernel
-    from gbp_poplar_tpu_torch.ops import table_kernel
+    from gbp_poplar_tpu_torch.ops import diag_kernel, reduce_kernel
+    from gbp_poplar_tpu_torch.ops import sweep_kernel, table_kernel
 
     return {"sweep": sweep_kernel.sweep, "table": table_kernel.build_tables,
             "reduce": reduce_kernel.segment_sum,
             "sweep_planes": sweep_kernel.sweep_planes,
-            "gather": reduce_kernel.gather}
+            "gather": reduce_kernel.gather, "diag": diag_kernel.edge_sums}
 
 
 def reset_kernel_counts() -> None:
@@ -1375,11 +1482,21 @@ def edge_shard_rank(rank):
 
     from gbp_poplar_tpu_torch import parallel
     from gbp_poplar_tpu_torch.config import GBPConfig
-    from gbp_poplar_tpu_torch.core import build_graph, comm, init_state
+    from gbp_poplar_tpu_torch.core import build_graph, comm, gbp, init_state
 
     prob = ladybug_problem()
     dev = rank.device
     out = {"device": str(dev)}
+
+    def telemetry(mode, fused, s, g, cfg):
+        """The five sums over both ranks' edges, by H6 and by the plain
+        version (each rank's sums, then one float64 all-reduce)."""
+        ref = dataclasses.replace(cfg, kernels="reference")
+        sums = [gbp._diag_sums(s, g, c, group=rank.group).cpu()
+                for c in (cfg, ref)]
+        if rank.rank == 0:
+            out[("diag", mode, fused)] = sums
+
     reset_kernel_counts()
     for fused in (True, False):
         cfg = GBPConfig(accel_every=0, coarse_groups=0, fused=fused)
@@ -1390,6 +1507,7 @@ def edge_shard_rank(rank):
         del graph
         out["block"] = g.n_edges
         s = solver.sweep(solver.initialise(s, g), g)
+        telemetry("edge", fused, s, g, cfg)
         full = solver.gather(s, n_edges)
         if rank.rank == 0:
             out[fused] = full
@@ -1400,7 +1518,9 @@ def edge_shard_rank(rank):
         solver = parallel.make_map_sharded_solver(rank.group, cfg)
         g, s = solver.prepare(build_graph(slam_prob, cfg, dev),
                               init_state(slam_prob, cfg, dev))
-        full = solver.gather(solver.sweep(solver.initialise(s, g), g))
+        s = solver.sweep(solver.initialise(s, g), g)
+        telemetry("map", fused, s, g, cfg)
+        full = solver.gather(s)
         if rank.rank == 0:
             out[("map", fused)] = full
         del g, s, full
@@ -1476,8 +1596,8 @@ def shard_phase(dev, card, coarse_err, slam_e_err):
     def on_card(counts, what):
         check(counts["sweep"] + counts["sweep_planes"] > 0
               and counts["table"] + counts["gather"] > 0
-              and counts["reduce"] > 0,
-              f"{what}: a rank did not launch H1/H4, H2/H5 and H3")
+              and counts["reduce"] > 0 and counts["diag"] > 0,
+              f"{what}: a rank did not launch H1/H4, H2/H5, H3 and H6")
 
     # (a) NCCL at world size 1 against the single-device run, to the bit
     (s, diag, counts, times), = parallel.run(nccl_rank, 1,
@@ -1563,6 +1683,19 @@ def shard_phase(dev, card, coarse_err, slam_e_err):
               f"{REDUCE_RTOL})")
         check(bits and max(rels) <= REDUCE_RTOL,
               f"(b) {label}: the sharded sweep differs")
+        # the telemetry over both ranks (H6 on each rank's tables, then the
+        # all-reduce) against its plain version and against one device's
+        one = gbp._diag_sums(s1, g, c).cpu()
+        k, r = res[0][("diag", mode, fused)]
+        counts = all(same(x[[0, 3, 4]], one[[0, 3, 4]]) for x in (k, r))
+        rel = max(((x[1:3] - y[1:3]).abs() / y[1:3]).max().item()
+                  for x, y in ((k, r), (k, one)))
+        print(f"[shard] (b) {label}: the five sums over both ranks, H6 "
+              f"and plain, counts equal to one device's: {counts}; float "
+              f"sums within {rel:.3e} of the plain's and one device's "
+              f"(bound {REDUCE_RTOL})")
+        check(counts and rel <= REDUCE_RTOL,
+              f"(b) {label}: the sharded telemetry differs")
 
     def whole(g):
         return slice(None), slice(None), None
@@ -1660,8 +1793,8 @@ def main() -> int:
     from gbp_poplar_tpu_torch.config import GBPConfig, InitConfig
     from gbp_poplar_tpu_torch.core import build_graph, factor_graph as fg
     from gbp_poplar_tpu_torch.core import gbp, init_state
-    from gbp_poplar_tpu_torch.ops import _cuda, reduce_kernel, sweep_kernel
-    from gbp_poplar_tpu_torch.ops import table_kernel
+    from gbp_poplar_tpu_torch.ops import _cuda, diag_kernel, reduce_kernel
+    from gbp_poplar_tpu_torch.ops import sweep_kernel, table_kernel
     from gbp_poplar_tpu_torch.utils import analysis, balio, priors
 
     dev = torch.device("cuda", 0)
@@ -1836,6 +1969,14 @@ def main() -> int:
     h3_err = max(h3_err, reduce_case(
         "Ladybug state lmk", state_l.pk[81:90], graph_l.lmk_seg,
         state_l.lmk_prior))
+    # the telemetry sums (H6) on the same state, without and with a mask
+    # of bad edges, and with singular beliefs
+    bad_l = bad_edges(prob_l, cfg, dev)
+    h6_err = diag_cases("Ladybug after initialise + 20 sweeps", state_l,
+                        graph_l, cfg, bad_l)
+    h6_err = max(h6_err, diag_cases(
+        "Ladybug, singular beliefs", singular_beliefs(state_l, graph_l),
+        graph_l, cfg, bad_l))
 
     # each kernel's time beside its plain version's, at the Ladybug shape
     st_k, st_r = state_l.clone(), state_l.clone()
@@ -1843,7 +1984,19 @@ def main() -> int:
     # H2 by the profiler's device time (its events' time is the host's)
     h2_ms, h2_plain, h2_b, h2_by = time_tables(
         state_l.cam_bel, state_l.lmk_bel, "the Ladybug shape", card)
+    # H6 by the profiler's device time, both passes per call, on the
+    # tables of this state
+    def h6(reference=False):
+        return diag_kernel.edge_sums(state_l, graph_l, cfg.num_undamped_iters,
+                                     tables=(ct, lt), reference=reference)
+
+    h6_ms = device_ms(h6, TIMED_SWEEPS, "diag_pass", per_call=True)
+    pass1 = device_ms(h6, TIMED_SWEEPS, "diag_pass1")
+    print(f"[time] diag at the Ladybug shape: device {h6_ms:.4f} ms per "
+          f"call (both passes, profiler; pass 1 {pass1:.4f} ms), events "
+          f"{cuda_ms(h6, TIMED_SWEEPS):.4f} ms per host call ({card})")
     times = {
+        "diag": (h6_ms, cuda_ms(lambda: h6(True), 5)),
         "sweep": (
             cuda_ms(lambda: sweep_kernel.sweep(st_k, graph_l, ct, lt, cfg),
                     TIMED_SWEEPS),
@@ -1870,6 +2023,8 @@ def main() -> int:
         "table": (h2_b, h2_by, None),
         "reduce": (*least_ms(cam_w[0] + lmk_w[0], cam_w[1] + lmk_w[1]),
                    time_reduce_sides(st_k, graph_l, n_real, card)),
+        "diag": (*least_ms(diag_bytes(graph_l, None),
+                           count_ops(lambda: h6(True))), None),
     }
     for k, (ms, plain) in times.items():
         b, by, lib = yard[k]
@@ -1904,9 +2059,12 @@ def main() -> int:
     print(f"[main] launches in the Ladybug main path: {launches_l}")
     check(bool(np.isfinite(err).all()), "main path: non-finite error")
     check(err[-1] < err0, "main path: error did not fall")
-    check(launches_l == {"sweep": LADYBUG_SWEEPS, "table": LADYBUG_SWEEPS,
+    # a sweep builds the tables twice (for H1 before it, for H6 after it);
+    # the error after initialise adds one build and one H6 launch
+    check(launches_l == {"sweep": LADYBUG_SWEEPS,
+                         "table": 2 * LADYBUG_SWEEPS + 1,
                          "reduce": 2 * LADYBUG_SWEEPS + 2, "sweep_planes": 0,
-                         "gather": 0},
+                         "gather": 0, "diag": LADYBUG_SWEEPS + 1},
           "main path did not go through every kernel once per sweep")
 
     s_r = gbp.initialise(init_state(prob_l, ref_cfg, dev), graph_l, ref_cfg)
@@ -1931,13 +2089,29 @@ def main() -> int:
         print(f"[main] {label}: {ms:.4f} ms/sweep at {e_l} padded edges "
               f"({card})")
 
-    # the main path as run above: with per-sweep diagnostics (plain
-    # PyTorch: per-variable means, projection, reductions)
+    # the main path as run above: with per-sweep diagnostics (H2 and H6)
     diag_ms = cuda_ms(lambda: gbp.run_gbp(s, graph_l, cfg, TIMED_SWEEPS,
                                           iter_offset=2 * cfg.steps),
                       1) / TIMED_SWEEPS
     print(f"[main] kernels with diagnostics: {diag_ms:.4f} ms/sweep "
           f"({card})")
+    # one diagnostics call as the profiler sees it: the plain version (the
+    # arithmetic every card path ran before H6) against H2 + H6
+    before = op_counts(lambda: gbp.diagnostics(s, graph_l, ref_cfg))
+    after = op_counts(lambda: gbp.diagnostics(s, graph_l, cfg))
+    # and what a sweep of run_gbp pays for them (its rows fill one buffer)
+    per_sweep = [op_counts(lambda: gbp.run_gbp(
+        s, graph_l, cfg, TIMED_SWEEPS, with_diagnostics=d,
+        iter_offset=2 * cfg.steps)) for d in (False, True)]
+    print(f"[diag] one diagnostics call at the Ladybug shape, by "
+          f"torch.profiler: plain version {before[0]} aten operations (top "
+          f"level) and {before[1]} device launches; H2 + H6 {after[0]} aten "
+          f"operations and {after[1]} device launches; run_gbp over "
+          f"{TIMED_SWEEPS} sweeps, per sweep without diagnostics "
+          f"{per_sweep[0][0] / TIMED_SWEEPS:.2f} aten operations and "
+          f"{per_sweep[0][1] / TIMED_SWEEPS:.2f} device launches, with them "
+          f"{per_sweep[1][0] / TIMED_SWEEPS:.2f} and "
+          f"{per_sweep[1][1] / TIMED_SWEEPS:.2f}")
     del s, s_r, s0, graph_l, diag, diag_r
     torch.cuda.empty_cache()
 
@@ -1994,6 +2168,9 @@ def main() -> int:
     state_v, _ = gbp.run_gbp(state_v, graph_v, cfg_u, 20,
                              with_diagnostics=False)
     held["venice"] = (graph_v, state_to(state_v, "cpu"), cfg_u)
+    h6_err = max(h6_err, diag_cases(
+        "Venice after initialise + 20 sweeps (cameras shuffled)", state_v,
+        graph_v, cfg_u, bad_edges(prob_v, cfg_u, dev)))
     h4_err = max(h4_err, sweep_planes_case(
         "Venice after initialise + 20 sweeps", state_v, graph_v, cfg_u))
     # H4 (gathered planes, per-edge means) against H1 (tables) on the same
@@ -2052,14 +2229,17 @@ def main() -> int:
           "Venice main path: the accelerator did not step at 160, 210, 260")
     # 10 annealed sweeps, then chunks of 50: chunk 1 plain, chunk 2 dead
     # but averaging its means, chunks 3-5 live, 40 plain sweeps; tables
-    # (H2, both kinds in one launch) only for the 200 averaged sweeps'
-    # means; reductions (H3) also at initialise and for the accelerator's
-    # active degrees
-    check(launches_v == {"sweep": 0, "table": 200,
+    # (H2, both kinds in one launch) after every sweep for H6, which the
+    # 200 averaged sweeps' means read too, and once for the error after
+    # initialise; reductions (H3) also at initialise and for the
+    # accelerator's active degrees
+    check(launches_v == {"sweep": 0, "table": VENICE_SWEEPS + 1,
                          "reduce": 2 * VENICE_SWEEPS + 4,
                          "sweep_planes": VENICE_SWEEPS,
-                         "gather": 2 * VENICE_SWEEPS},
-          "Venice main path did not go through H5, H4 and H3 every sweep")
+                         "gather": 2 * VENICE_SWEEPS,
+                         "diag": VENICE_SWEEPS + 1},
+          "Venice main path did not go through H5, H4, H3 and H6 every "
+          "sweep")
 
     # ---- 7. agreement at the Venice shape ----
     ends = {}
@@ -2179,9 +2359,10 @@ def main() -> int:
     del raw_l, prob_l
     launches_lm = lm_phase(prob_v, venice_means, cfg_u, dev, reset_counts,
                            read_counts, card)
-    launches_s, h1_slam, h4_slam, slam_e_err = slam_phase(
+    launches_s, h1_slam, h4_slam, h6_slam, slam_e_err = slam_phase(
         dev, reset_counts, read_counts, card, compare_sweeps)
     h1_err, h4_err = max(h1_err, h1_slam), max(h4_err, h4_slam)
+    h6_err = max(h6_err, h6_slam)
     launches_u, h3_utils = utils_phase(held, bal, dev, reset_counts,
                                        read_counts, card)
     h3_err = max(h3_err, h3_utils)
@@ -2201,6 +2382,8 @@ def main() -> int:
                          "gbp_poplar_tpu/ops/sweep_kernel.py:43", h4_err),
         "gather": ("gbp_poplar_tpu_torch/csrc/gather.cu",
                    "gbp_poplar_tpu/ops/reduce_kernel.py:439", h5_err),
+        "diag": ("gbp_poplar_tpu_torch/csrc/diag.cu",
+                 "gbp_poplar_tpu/core/gbp.py:1027", h6_err),
     }
     launches = {k: sum(run[k] for run in (launches_l, launches_v, launches_c,
                                           launches_d, launches_lm,

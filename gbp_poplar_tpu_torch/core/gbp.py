@@ -25,7 +25,10 @@ their plain PyTorch versions, chosen by the tensors' device and
     2. ops/sweep_kernel.sweep_planes: ``edge_math`` with the means solved
        per edge, in place on the packed edge state;
   and then, for both:
-    3. ops/reduce_kernel.segment_sum: beliefs = priors + message sums.
+    3. ops/reduce_kernel.segment_sum: beliefs = priors + message sums;
+    4. with diagnostics, the tables of the new beliefs and
+       ops/diag_kernel.edge_sums: the telemetry's five sums, written into
+       one [n, 5] buffer per solve on the device.
 
 Around the solve: ``recenter_priors`` and ``weaken_priors`` edit the
 priors, and ``reprojection_error`` / ``map_cost`` take an optional mask of
@@ -50,7 +53,7 @@ import torch
 
 from ..config import GBPConfig
 from ..ops import planes as pl
-from ..ops import reduce_kernel, sweep_kernel, table_kernel
+from ..ops import diag_kernel, reduce_kernel, sweep_kernel, table_kernel
 from . import coarse, comm
 from .factor_graph import (CAM_DOF, LMK_DOF, MSG_CAM_ROWS, MSG_LMK_ROWS,
                            GBPGraph, GBPState)
@@ -62,16 +65,26 @@ def _variable_means(state: GBPState) -> tuple[torch.Tensor, torch.Tensor]:
             table_kernel.variable_means(state.lmk_bel, LMK_DOF))
 
 
-def _sanitized_means(state: GBPState, cfg: GBPConfig):
-    """Belief means per variable, each column zeroed whole where any
-    component is not finite: the JAX package's
-    ``_sanitize_means(*_variable_means(state))``, read from the belief
-    tables (ops/table_kernel.build_tables) that hold exactly that."""
-    tables = table_kernel.build_tables(state.cam_bel, state.lmk_bel,
-                                       reference=cfg.kernels == "reference")
+def _tables(state: GBPState, cfg: GBPConfig):
+    """The belief tables of the current beliefs (ops/table_kernel), by H2
+    unless ``cfg.kernels == "reference"``."""
+    return table_kernel.build_tables(state.cam_bel, state.lmk_bel,
+                                     reference=cfg.kernels == "reference")
+
+
+def _table_means(state: GBPState, tables):
+    """Belief means per variable read from the belief ``tables``, each
+    column zeroed whole where any component is not finite: the JAX
+    package's ``_sanitize_means(*_variable_means(state))``."""
     return [tbl[:, bel.shape[0]:bel.shape[0] + d].T
             for tbl, bel, d in zip(tables, (state.cam_bel, state.lmk_bel),
                                    (CAM_DOF, LMK_DOF))]
+
+
+def _sanitized_means(state: GBPState, cfg: GBPConfig):
+    """Belief means per variable, each column zeroed whole where any
+    component is not finite (``_table_means`` of fresh tables)."""
+    return _table_means(state, _tables(state, cfg))
 
 
 # ---------------------------------------------------------------------------
@@ -431,25 +444,20 @@ class Diagnostics(NamedTuple):
     cam_means: torch.Tensor | None = None
 
 
-def _reprojection_sums(state: GBPState, graph: GBPGraph, bad):
-    """(valid edges, sum of residual norms, cost) over this graph's edges."""
-    cam_mu, lmk_mu = _variable_means(state)
-    mu_c = cam_mu.index_select(1, graph.cam_idx)
-    mu_l = lmk_mu.index_select(1, graph.lmk_idx)
-    (u, v), _, _ = pl.project(
-        pl.unpack_vec(mu_c, 6), pl.unpack_vec(mu_l, 3), graph.k,
-        None if graph.intr is None else pl.unpack_vec(graph.intr, 3))
-    ru = graph.meas[0] - u
-    rv = graph.meas[1] - v
-    norm = torch.sqrt(ru * ru + rv * rv)
-    valid = (state.active > 0) & torch.isfinite(norm)
-    if bad is not None:
-        valid = valid & ~bad
-    norm = torch.where(valid, norm, 0.0)
-    n_active = torch.sum(valid.to(norm.dtype))
-    sum_norm = torch.sum(norm)
-    cost = 0.5 * torch.sum(norm * norm)
-    return n_active, sum_norm, cost
+def _diag_sums(state: GBPState, graph: GBPGraph, cfg: GBPConfig | None,
+               bad=None, tables=None, out=None, group=None) -> torch.Tensor:
+    """The five telemetry sums (ops/diag_kernel.SUMS) over this graph's
+    edges, float64 [5] (written into ``out`` if given): H6 on the tables
+    of the current beliefs (``tables``, built if None), or the plain
+    version on the CPU or with ``cfg.kernels == "reference"``. With
+    ``group`` the sums run over every rank's edges, in one collective."""
+    sums = diag_kernel.edge_sums(
+        state, graph, 0 if cfg is None else cfg.num_undamped_iters, bad,
+        tables=tables, out=out,
+        reference=cfg is not None and cfg.kernels == "reference")
+    if group is not None:
+        sums.copy_(comm.all_sum(group, [sums])[0])
+    return sums
 
 
 def _mean_error(n_active, sum_norm):
@@ -457,36 +465,38 @@ def _mean_error(n_active, sum_norm):
                        sum_norm / torch.clamp_min(n_active, 1.0), torch.nan)
 
 
+def _diagnostics_from_sums(sums: torch.Tensor, dtype,
+                           cam_means=None) -> Diagnostics:
+    """Diagnostics from rows of ``_diag_sums`` ([..., 5]): the mean error
+    (NaN without a valid edge) and the cost in the beliefs' ``dtype``, the
+    counts as int64."""
+    n_active, sum_norm, cost = (sums[..., i].to(dtype) for i in range(3))
+    return Diagnostics(_mean_error(n_active, sum_norm), cost,
+                       sums[..., 3].to(torch.int64),
+                       sums[..., 4].to(torch.int64), cam_means)
+
+
 def reprojection_error(state: GBPState, graph: GBPGraph,
-                       bad: torch.Tensor | None = None, group=None):
+                       bad: torch.Tensor | None = None, group=None,
+                       cfg: GBPConfig | None = None):
     """Mean reprojection residual norm and total cost over active edges
     whose residual is finite; NaN (not 0) when no edge is valid. ``bad``
     ([E] bool on the graph's device, ``factor_graph.bad_edge_mask``)
     excludes known-bad associations. With ``group`` the sums run over
-    every rank's edges."""
-    n_active, sum_norm, cost = _reprojection_sums(state, graph, bad)
-    if group is not None:
-        n_active, sum_norm, cost = comm.all_sum(
-            group, [n_active, sum_norm, cost], torch.float64)
-    return _mean_error(n_active, sum_norm), cost
+    every rank's edges. On a card the sums are H6's unless
+    ``cfg.kernels == "reference"``."""
+    d = _diagnostics_from_sums(_diag_sums(state, graph, cfg, bad,
+                                          group=group), state.cam_bel.dtype)
+    return d.reproj_err, d.cost
 
 
 def diagnostics(state: GBPState, graph: GBPGraph, cfg: GBPConfig,
                 with_cam_means: bool = False, group=None) -> Diagnostics:
     """The per-sweep telemetry; with ``group`` its five sums go over every
     rank's edges in one collective."""
-    n_active, sum_norm, cost = _reprojection_sums(state, graph, None)
-    act = state.active > 0
-    n_relins = torch.sum(
-        (state.damping_count == -cfg.num_undamped_iters) & act)
-    n_robust = torch.sum(state.robust & act)
-    if group is not None:
-        n_active, sum_norm, cost, n_relins, n_robust = comm.all_sum(
-            group, [n_active, sum_norm, cost, n_relins, n_robust],
-            torch.float64)
     cam_means = _variable_means(state)[0] if with_cam_means else None
-    return Diagnostics(_mean_error(n_active, sum_norm), cost, n_relins,
-                       n_robust, cam_means)
+    return _diagnostics_from_sums(_diag_sums(state, graph, cfg, group=group),
+                                  state.cam_bel.dtype, cam_means)
 
 
 # ---------------------------------------------------------------------------
@@ -853,11 +863,17 @@ def run_gbp(state: GBPState, graph: GBPGraph, cfg: GBPConfig, n_iters: int,
     AccelStep with its ``coarse`` record) per accelerator step.
     ``verbose_means`` also stacks each sweep's camera means into
     ``Diagnostics.cam_means``."""
-    diags = []
+    # row j: sweep j's five sums (_diag_sums), filled in place on the device
+    rows = (torch.empty((n_iters, len(diag_kernel.SUMS)), dtype=torch.float64,
+                        device=state.pk.device) if with_diagnostics else None)
+    cam_means = []
+    done = 0
 
     def sweeps(s, n, collect=False, anneal_from=None):
         """``n`` sweeps (annealed iterations from index ``anneal_from``);
-        with ``collect``, also the sum of the post-sweep sanitised means."""
+        with ``collect``, also the sum of the post-sweep sanitised means.
+        The post-sweep tables serve both the diagnostics and the means."""
+        nonlocal done
         sums = None
         if collect:
             sums = (torch.zeros_like(s.cam_bel[:CAM_DOF]),
@@ -869,12 +885,19 @@ def run_gbp(state: GBPState, graph: GBPGraph, cfg: GBPConfig, n_iters: int,
             else:
                 s = gbp_sweep(s, graph, cfg, group=group,
                               lmk_sharded=lmk_sharded)
+            tables = None
+            if collect or (with_diagnostics and cfg.kernels != "reference"
+                           and s.pk.device.type != "cpu"):
+                tables = _tables(s, cfg)
             if with_diagnostics:
-                diags.append(diagnostics(s, graph, cfg, verbose_means,
-                                         group=group))
+                _diag_sums(s, graph, cfg, tables=tables, out=rows[done],
+                           group=group)
+                if verbose_means:
+                    cam_means.append(_variable_means(s)[0])
             if collect:
-                mc, ml = _sanitized_means(s, cfg)
+                mc, ml = _table_means(s, tables)
                 sums = (sums[0] + mc, sums[1] + ml)
+            done += 1
         return s, sums
 
     warm = min(n_iters, max(0, 2 * cfg.steps - iter_offset))
@@ -910,10 +933,11 @@ def run_gbp(state: GBPState, graph: GBPGraph, cfg: GBPConfig, n_iters: int,
                 accel_log.append((off2 + (c + 1) * ce, info))
         n2 -= n_chunks * ce
     state, _ = sweeps(state, n2)
-    if not with_diagnostics or not diags:
+    if not with_diagnostics or not n_iters:
         return state, None
-    return state, Diagnostics(*(None if x[0] is None else torch.stack(x)
-                                for x in zip(*diags)))
+    return state, _diagnostics_from_sums(
+        rows, state.cam_bel.dtype,
+        torch.stack(cam_means) if verbose_means else None)
 
 
 def solve(state: GBPState, graph: GBPGraph, cfg: GBPConfig,

@@ -67,30 +67,9 @@ __device__ __forceinline__ void linearise(const SweepParams& p,
                                           const float intr[3],
                                           Potential& out) {
   const float zero = 0.0f;
-  float r[3][3];
-  so3_exp(cam + 3, r);
-  float y_cf[3];
-#pragma unroll
-  for (int i = 0; i < 3; ++i)
-    y_cf[i] = (r[i][0] * lmk[0] + r[i][1] * lmk[1] + r[i][2] * lmk[2])
-              + cam[i];
   const bool has_intr = p.flags & F_HAS_INTR;
-  // projection (planes.project)
-  float u, v;
-  {
-    const float inv_z = 1.0f / y_cf[2];
-    if (!has_intr) {
-      u = p.fx * y_cf[0] * inv_z + p.cx;
-      v = p.fy * y_cf[1] * inv_z + p.cy;
-    } else {
-      const float px = -y_cf[0] * inv_z;
-      const float py = -y_cf[1] * inv_z;
-      const float rho = px * px + py * py;
-      const float dist = 1.0f + rho * (intr[1] + intr[2] * rho);
-      u = intr[0] * dist * px;
-      v = intr[0] * dist * py;
-    }
-  }
+  float r[3][3], y_cf[3], u, v;
+  project(cam, lmk, p.fx, p.fy, p.cx, p.cy, has_intr, intr, r, y_cf, u, v);
   const float inv_z = 1.0f / y_cf[2];
   const float inv_z2 = inv_z * inv_z;
   float j_proj[2][3];

@@ -176,6 +176,37 @@ __device__ __forceinline__ void so3_exp(const float w[3], float r[3][3]) {
   r[2][2] = 1.0f - b * (xx + yy);
 }
 
+// The camera-frame point y_cf = R(w) lmk + t of camera [t | w] and its
+// pixel (u, v) (planes.w2c_apply, planes.project): the pinhole model (fx,
+// fy, cx, cy), or with ``has_intr`` the Snavely/BAL model on ``intr`` = [f,
+// k1, k2] (the camera looks down -z). The sweep's relinearisation
+// (edge_math.cuh linearise) and the telemetry (diag.cuh diag_edge) both
+// project here.
+__device__ __forceinline__ void project(const float cam[6],
+                                        const float lmk[3], float fx,
+                                        float fy, float cx, float cy,
+                                        bool has_intr, const float intr[3],
+                                        float r[3][3], float y_cf[3],
+                                        float& u, float& v) {
+  so3_exp(cam + 3, r);
+#pragma unroll
+  for (int i = 0; i < 3; ++i)
+    y_cf[i] = (r[i][0] * lmk[0] + r[i][1] * lmk[1] + r[i][2] * lmk[2])
+              + cam[i];
+  const float inv_z = 1.0f / y_cf[2];
+  if (!has_intr) {
+    u = fx * y_cf[0] * inv_z + cx;
+    v = fy * y_cf[1] * inv_z + cy;
+  } else {
+    const float px = -y_cf[0] * inv_z;
+    const float py = -y_cf[1] * inv_z;
+    const float rho = px * px + py * py;
+    const float dist = 1.0f + rho * (intr[1] + intr[2] * rho);
+    u = intr[0] * dist * px;
+    v = intr[0] * dist * py;
+  }
+}
+
 // out = a @ b for R x K times K x C (planes.matmul: left-to-right sums)
 template <int R, int K, int C>
 __device__ __forceinline__ void matmul(const float a[R][K],

@@ -30,6 +30,8 @@ for the landmark ones), the edges' index, and the per-variable outputs.
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 from . import _cuda
@@ -38,15 +40,35 @@ from . import _cuda
 WARP_SEGMENT_MIN = 64
 
 
+@contextlib.contextmanager
+def _deterministic():
+    """PyTorch's deterministic algorithms for the enclosed operations
+    only: ``index_add_`` on a card then sums by sorted index instead of
+    with atomics, so its result is the same from run to run."""
+    mode = torch.are_deterministic_algorithms_enabled()
+    warn = torch.is_deterministic_algorithms_warn_only_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(mode, warn_only=warn)
+
+
 def segment_sum_reference(planes: torch.Tensor, seg,
                           prior: torch.Tensor | None = None) -> torch.Tensor:
-    """Plain PyTorch version: ``index_add_`` of the listed edges' columns
-    (sequential in listed order on the CPU)."""
+    """Plain PyTorch version: ``index_add_`` of the listed edges' columns,
+    sequential in listed order on the CPU; on a card under PyTorch's
+    deterministic algorithms (``_deterministic``), so that the plain
+    solve repeats to the bit from run to run there too."""
     cols = (planes[:, :seg.var.shape[0]] if seg.perm is None
             else planes.index_select(1, seg.perm))
     out = torch.zeros((planes.shape[0], seg.n_var), dtype=planes.dtype,
                       device=planes.device)
-    out.index_add_(1, seg.var, cols)
+    if planes.device.type == "cpu":
+        out.index_add_(1, seg.var, cols)
+    else:
+        with _deterministic():
+            out.index_add_(1, seg.var, cols)
     return out if prior is None else prior + out
 
 

@@ -14,7 +14,8 @@ from gbp_poplar_tpu_torch import solve_ba
 from gbp_poplar_tpu_torch.config import GBPConfig
 from gbp_poplar_tpu_torch.core import factor_graph as fg
 from gbp_poplar_tpu_torch.core import gbp
-from gbp_poplar_tpu_torch.ops import reduce_kernel, sweep_kernel, table_kernel
+from gbp_poplar_tpu_torch.ops import (diag_kernel, reduce_kernel, sweep_kernel,
+                                      table_kernel)
 from gbp_poplar_tpu_torch.utils import balio
 
 
@@ -50,8 +51,8 @@ def test_kernels_match_plain_on_card(cuda_device, name):
                              (sk.pk[81:90], g.lmk_seg, sk.lmk_prior)):
         k = reduce_kernel.segment_sum(rows, seg, prior)
         r = reduce_kernel.segment_sum(rows, seg, prior, reference=True)
-        # the plain version adds with atomics in a run-dependent order:
-        # bound the difference by 1e-5 of the sum of |terms|
+        # the plain version adds in another (sorted, fixed) order: bound
+        # the difference by 1e-5 of the sum of |terms|
         scale = reduce_kernel.segment_sum(rows.abs(), seg, prior.abs(),
                                           reference=True)
         assert bool(((k - r).abs() <= 1e-5 * scale).all())
@@ -312,6 +313,84 @@ def test_weaken_priors_and_bad_mask_on_card(cuda_device):
     o_err, _ = evaluation.numpy_reprojection_error(cam_mu, lmk_mu, prob,
                                                    bad_associations=ids)
     assert err.item() != err_all.item() and abs(o_err - err.item()) < 1e-3
+
+
+@pytest.mark.cuda
+def test_plain_segment_sum_repeats_on_card(cuda_device):
+    """The plain segmented sum on the card (``index_add_`` under PyTorch's
+    deterministic algorithms) gives the same bits run after run, on
+    camera-shuffled segments of thousands of edges per camera, within
+    1e-5 of the sum of |terms| of the CPU's sequential sum; the
+    deterministic mode is off again after each call."""
+    prob = balio.synthetic_problem_large(n_keyframes=30, n_points=20001,
+                                         obs_per_lmk=5, seed=1)
+    perm = np.random.default_rng(1).permutation(prob.n_keyframes)
+    prob.cam_idx = perm[prob.cam_idx].astype(prob.cam_idx.dtype)
+    g = fg.build_graph(prob, GBPConfig(), cuda_device)
+    g_cpu = fg.build_graph(prob, GBPConfig(), "cpu")
+    rng = np.random.default_rng(3)
+    rows = rng.normal(0, 1, (27, g.n_edges)).astype(np.float32)
+    prior = rng.normal(0, 1, (27, g.n_keyframes)).astype(np.float32)
+    on_card = [reduce_kernel.segment_sum(
+        torch.tensor(rows, device=cuda_device), g.cam_seg,
+        torch.tensor(prior, device=cuda_device), reference=True)
+        for _ in range(3)]
+    assert not torch.are_deterministic_algorithms_enabled()
+    for again in on_card[1:]:
+        assert torch.equal(again, on_card[0])
+    cpu = reduce_kernel.segment_sum(torch.tensor(rows), g_cpu.cam_seg,
+                                    torch.tensor(prior))
+    scale = reduce_kernel.segment_sum(torch.tensor(np.abs(rows)),
+                                      g_cpu.cam_seg, torch.tensor(
+                                          np.abs(prior)))
+    assert bool(((on_card[0].cpu() - cpu).abs() <= 1e-5 * scale).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["pinhole", "snavely"])
+def test_diag_kernel_matches_plain_on_card(cuda_device, name):
+    """H6 against its plain version on the card, on a state with singular
+    beliefs (two landmarks' Lambda zeroed, a camera's eta NaN), with and
+    without a bad mask: counts equal, float sums within 1e-5 of the sum of
+    |terms| (the value: the terms are >= 0), the same bits on a rerun;
+    then run_gbp's per-sweep diagnostics through H6 (one launch and one
+    extra table build a sweep) against kernels="reference"."""
+    prob = (balio.synthetic_problem(n_keyframes=6, n_points=60, seed=0,
+                                    pixel_noise=0.5) if name == "pinhole"
+            else balio.synthetic_problem_snavely(pixel_noise=0.5))
+    cfg = GBPConfig(accel_every=0)
+    g = fg.build_graph(prob, cfg, cuda_device)
+    s = gbp.initialise(fg.init_state(prob, cfg, cuda_device), g, cfg)
+    s, _ = gbp.run_gbp(s, g, cfg, 18, with_diagnostics=False)
+    sing = s.clone()
+    seen = g.lmk_idx[s.active > 0].unique()
+    sing.lmk_bel[3:, seen[:2]] = 0.0
+    sing.cam_bel[0, 1] = float("nan")
+    bad = torch.rand(g.n_edges, device=cuda_device,
+                     generator=torch.Generator(device=cuda_device)
+                     .manual_seed(0)) < 0.1
+    n = cfg.num_undamped_iters
+    for st in (s, sing):
+        for mask in (None, bad):
+            k = diag_kernel.edge_sums(st, g, n, mask)
+            r = diag_kernel.edge_sums(st, g, n, mask, reference=True)
+            assert torch.equal(k[[0, 3, 4]], r[[0, 3, 4]])
+            assert bool(((k[1:3] - r[1:3]).abs() <= 1e-5 * r[1:3]).all())
+            assert torch.equal(k, diag_kernel.edge_sums(st, g, n, mask))
+    assert (diag_kernel.edge_sums(sing, g, n)[0]
+            < diag_kernel.edge_sums(s, g, n)[0])
+
+    diag_kernel.edge_sums.launches = 0
+    table_kernel.build_tables.launches = 0
+    _, dk = gbp.run_gbp(s.clone(), g, cfg, 10)
+    assert diag_kernel.edge_sums.launches == 10
+    assert table_kernel.build_tables.launches == 20
+    _, dr = gbp.run_gbp(s.clone(), g, GBPConfig(accel_every=0,
+                                                kernels="reference"), 10)
+    # the two runs' beliefs part by H3's other summation order
+    np.testing.assert_allclose(dk.reproj_err.cpu(), dr.reproj_err.cpu(),
+                               rtol=1e-3)
+    assert dk.n_relins.dtype == torch.int64
 
 
 def _nccl_solve(rank):

@@ -27,6 +27,8 @@ from gbp_poplar_tpu.utils import balio as jax_balio
 from gbp_poplar_tpu_torch import GBPConfig, solve_ba
 from gbp_poplar_tpu_torch.core import factor_graph as fg
 from gbp_poplar_tpu_torch.core import gbp
+from gbp_poplar_tpu_torch.ops import diag_kernel, table_kernel
+from gbp_poplar_tpu_torch.ops import planes as pl
 from gbp_poplar_tpu_torch.utils import balio
 
 torch.set_num_threads(1)
@@ -136,6 +138,87 @@ def test_initialise_and_diagnostics_match_jax(synthetic):
     np.testing.assert_allclose(dt.cost.item(), float(dj.cost), rtol=1e-4)
     assert dt.n_relins.item() == int(dj.n_relins)
     assert dt.n_robust.item() == int(dj.n_robust)
+
+
+# the telemetry against JAX's, floats relative to the value: both packages
+# sum float32 residual norms of means solved alike, in other orders
+DIAG_RTOL = 1e-5
+
+
+@pytest.mark.parametrize("singular", [False, True],
+                         ids=["regular", "singular"])
+@pytest.mark.parametrize("name", ["pinhole", "snavely"])
+def test_diagnostics_and_masked_error_match_jax(warmed, name, singular):
+    """``diagnostics`` and ``reprojection_error(bad=...)`` on the same
+    state as JAX's (one sweep past the first relinearisations, some edges
+    Huber-flagged), and with ``singular`` three landmarks' Lambda zeroed
+    and a camera's eta NaN, so that their edges' means are not finite:
+    counts equal, floats within DIAG_RTOL."""
+    import jax.numpy as jnp
+
+    tp, jg, step, js = warmed[name]
+    js = step(js)
+    e = int(js.active.shape[0])
+    robust = np.asarray(js.robust).copy()
+    robust[::7] = True
+    js = js._replace(robust=jnp.asarray(robust))
+    if singular:
+        lmk_lam = np.asarray(js.lmk_lam).copy()
+        lmk_lam[:, [0, 5, 9]] = 0.0
+        cam_eta = np.asarray(js.cam_eta).copy()
+        cam_eta[0, 2] = np.nan
+        js = js._replace(lmk_lam=jnp.asarray(lmk_lam),
+                         cam_eta=jnp.asarray(cam_eta))
+    jc = _jax_cfg(False)
+    tc = GBPConfig(accel_every=0, edge_pad_multiple=PAD)
+    graph = fg.build_graph(tp, tc, "cpu")
+    state = fg.state_from_numpy(_jax_fields(js), "cpu")
+    bad = np.random.default_rng(6).random(e) < 0.2
+
+    dj = jax_gbp.diagnostics(js, jg, jc)
+    dt = gbp.diagnostics(state, graph, tc)
+    ej, cj = jax_gbp.reprojection_error(js, jg, bad=jnp.asarray(bad))
+    et, ct = gbp.reprojection_error(state, graph, torch.tensor(bad))
+    assert dt.n_relins.item() == int(dj.n_relins) > 0
+    assert dt.n_robust.item() == int(dj.n_robust) > 0
+    for got, want in ((dt.reproj_err, dj.reproj_err), (dt.cost, dj.cost),
+                      (et, ej), (ct, cj)):
+        np.testing.assert_allclose(got.item(), float(want), rtol=DIAG_RTOL)
+    assert et.item() != dt.reproj_err.item()
+    # H6's validity rule (the tables' flags, then a finite norm at the
+    # sanitised means) picks exactly JAX's valid edges (a finite norm at
+    # the unsanitised means), edge by edge; the port's count is theirs
+    want = _jax_valid_edges(js, jg)
+    ct_, lt_ = table_kernel.build_tables(state.cam_bel, state.lmk_bel)
+    cam_ok = ct_[graph.cam_idx.long(), 33] > 0
+    lmk_ok = lt_[graph.lmk_idx.long(), 12] > 0
+    (u, v), _, _ = pl.project(
+        pl.unpack_vec(ct_[:, 27:33].T.index_select(1, graph.cam_idx), 6),
+        pl.unpack_vec(lt_[:, 9:12].T.index_select(1, graph.lmk_idx), 3),
+        graph.k, None if graph.intr is None else pl.unpack_vec(graph.intr, 3))
+    norm = torch.sqrt((graph.meas[0] - u) ** 2 + (graph.meas[1] - v) ** 2)
+    rule = (state.active > 0) & cam_ok & lmk_ok & torch.isfinite(norm)
+    np.testing.assert_array_equal(rule.numpy(), want)
+    n_t = diag_kernel.edge_sums(state, graph, tc.num_undamped_iters)[0]
+    assert int(n_t) == int(want.sum())
+    if singular:
+        assert int(want.sum()) < int((np.asarray(js.active) > 0).sum())
+
+
+def _jax_valid_edges(js, jg):
+    """JAX's validity mask of reprojection_error: active edges whose
+    residual norm (at the unsanitised means) is finite."""
+    import jax.numpy as jnp
+
+    from gbp_poplar_tpu.ops import planes as jpl
+
+    cam_mu, lmk_mu = jax_gbp._variable_means(js)
+    (u, v), _, _ = jpl.project(
+        jpl.unpack_vec(jnp.take(cam_mu, jg.cam_idx, 1), 6),
+        jpl.unpack_vec(jnp.take(lmk_mu, jg.lmk_idx, 1), 3), jg.k,
+        None if jg.intr is None else jpl.unpack_vec(jg.intr, 3))
+    norm = jnp.sqrt((jg.meas[0] - u) ** 2 + (jg.meas[1] - v) ** 2)
+    return np.asarray((js.active > 0) & jnp.isfinite(norm)).reshape(-1)
 
 
 def test_edge_math_matches_jax(warmed):

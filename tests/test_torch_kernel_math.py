@@ -5,8 +5,9 @@ fused sweep kernel (H1, ``edge_math_tables``) and of the unfused one (H4,
 ``edge_math_gathered``), both through the shared-memory tile accessor
 ``TileColumn``; csrc/table.cuh the per-variable row of the table build
 (H2), csrc/gather.cuh that of the gather (H5), csrc/reduce.cuh the run sum
-and chunk combine of H3's two-pass sum, as plain ``__device__`` functions
-on scalars. With a
+and chunk combine of H3's two-pass sum, csrc/diag.cuh the per-edge terms
+and both passes of the telemetry sums (H6), as plain ``__device__``
+functions on scalars. With a
 small header that defines the few CUDA names they use, g++ compiles them
 for the CPU; these tests run each body edge by edge (the loop the kernel's
 threads run in parallel) against the plain PyTorch version on the same
@@ -29,8 +30,9 @@ import torch
 from gbp_poplar_tpu_torch.config import GBPConfig
 from gbp_poplar_tpu_torch.core import factor_graph as fg
 from gbp_poplar_tpu_torch.core import gbp, slam
-from gbp_poplar_tpu_torch.ops import (_cuda, planes, reduce_kernel,
-                                      sweep_kernel, table_kernel)
+from gbp_poplar_tpu_torch.ops import (_cuda, diag_kernel, planes,
+                                      reduce_kernel, sweep_kernel,
+                                      table_kernel)
 from gbp_poplar_tpu_torch.utils import balio, flags
 
 torch.set_num_threads(1)
@@ -54,6 +56,7 @@ _HOST = r"""
 #include <algorithm>
 #include <vector>
 #include "cuda_runtime.h"
+#include "diag.cuh"
 #include "edge_math.cuh"
 #include "gather.cuh"
 #include "reduce.cuh"
@@ -192,6 +195,53 @@ extern "C" void host_gather(const float* src, long long n_var, int comp,
   for (long long e = 0; e < n; ++e)
     gather_edge(src, n_var, comp, idx[e], out, n, e);
 }
+// H6's two passes: per block, each thread's edges (diag_thread_edges) and
+// the block's tree (diag_tree_level), one partial per block; then pass 2's
+// threads over the partials, its tree and diag_finish. The threads of a
+// tree level run one after another here, in parallel on the card: each
+// level's adds are independent.
+static void host_tree(double* sums) {
+  for (int h = DIAG_THREADS / 2; h > 0; h >>= 1)
+    for (int t = 0; t < h; ++t) diag_tree_level(sums, h, t);
+}
+extern "C" void host_diag(const DiagArgs* a, double* partial, double* out) {
+  const long long blocks = diag_blocks(a->n_edges);
+  std::vector<double> sums(DIAG_SUMS * DIAG_THREADS);
+  double acc[DIAG_SUMS];
+  for (long long b = 0; b < blocks; ++b) {
+    for (int t = 0; t < DIAG_THREADS; ++t) {
+      diag_thread_edges(*a, b, t, acc);
+      for (int k = 0; k < DIAG_SUMS; ++k) sums[k * DIAG_THREADS + t] = acc[k];
+    }
+    host_tree(sums.data());
+    for (int k = 0; k < DIAG_SUMS; ++k)
+      partial[k * blocks + b] = sums[k * DIAG_THREADS];
+  }
+  for (int t = 0; t < DIAG_THREADS; ++t) {
+    diag_thread_partials(partial, blocks, t, acc);
+    for (int k = 0; k < DIAG_SUMS; ++k) sums[k * DIAG_THREADS + t] = acc[k];
+  }
+  host_tree(sums.data());
+  diag_finish(sums.data(), out);
+}
+// planes.cuh's project on plane inputs: cam [6, n], lmk [3, n], intr
+// [3, n] or null; uv [2, n] and y_cf [3, n] out.
+extern "C" void host_project(const float* cam, const float* lmk,
+                             const float* pinhole, const float* intr,
+                             float* uv, float* y, long long n) {
+  for (long long e = 0; e < n; ++e) {
+    float c[6], l[3], in[3] = {0.f, 0.f, 0.f}, r[3][3], y_cf[3], u, v;
+    for (int i = 0; i < 6; ++i) c[i] = cam[i * n + e];
+    for (int i = 0; i < 3; ++i) l[i] = lmk[i * n + e];
+    if (intr)
+      for (int i = 0; i < 3; ++i) in[i] = intr[i * n + e];
+    project(c, l, pinhole[0], pinhole[1], pinhole[2], pinhole[3],
+            intr != nullptr, in, r, y_cf, u, v);
+    uv[e] = u;
+    uv[n + e] = v;
+    for (int i = 0; i < 3; ++i) y[i * n + e] = y_cf[i];
+  }
+}
 """
 
 
@@ -218,9 +268,11 @@ def host_lib(tmp_path_factory):
     lib.host_gather.argtypes = [p, ll, i, p, p, ll]
     lib.host_reduce_chunks.argtypes = [p, ll, i, p, p, p, p, p, i, i, i, i,
                                        i, p, p]
+    lib.host_diag.argtypes = [p, p, p]
+    lib.host_project.argtypes = [p, p, p, p, p, p, ll]
     for fn in (lib.host_sweep, lib.host_sweep_planes, lib.host_sweep_tiled,
                lib.host_sweep_planes_tiled, lib.host_table, lib.host_gather,
-               lib.host_reduce_chunks):
+               lib.host_reduce_chunks, lib.host_diag, lib.host_project):
         fn.restype = None
     return lib
 
@@ -589,3 +641,104 @@ def test_host_built_chunked_reduce_matches_plain(host_lib, kind):
     assert bool(((out - ref).abs() <= 1e-5 * scale).all())
     assert bool(((out.double() - exact).abs() <= 1e-5 * scale).all())
     assert torch.equal(out, host(torch.empty_like(out)))
+
+
+@pytest.mark.parametrize("snavely", [False, True], ids=["pinhole",
+                                                         "snavely"])
+def test_host_built_projection_matches_plain(host_lib, snavely):
+    """planes.cuh ``project`` (the projection that H1's and H4's
+    relinearisation and H6 share) against ``planes.project``, rotations
+    at and near 0 included: within 1e-4 of 1 + |value| (the host's
+    sinf/cosf)."""
+    rng = np.random.default_rng(21)
+    n = 400
+    cam = rng.normal(0, 1, (6, n))
+    cam[3:] *= 0.3
+    cam[3:, :5] = 0.0
+    cam[3:, 5:10] = 1e-7
+    lmk = rng.normal(0, 1, (3, n)) + np.array([[0.0], [0.0], [6.0]])
+    cam, lmk = (torch.tensor(x.astype(np.float32)) for x in (cam, lmk))
+    k = np.array([[520.0, 0, 320.0], [0, 510.0, 240.0], [0, 0, 1]],
+                 np.float32)
+    intr = None
+    if snavely:
+        intr = torch.tensor(np.stack([
+            rng.uniform(400, 600, n), rng.normal(0, 1e-2, n),
+            rng.normal(0, 1e-3, n)]).astype(np.float32))
+    (u, v), y_cf, _ = planes.project(
+        planes.unpack_vec(cam, 6), planes.unpack_vec(lmk, 3), k,
+        None if intr is None else planes.unpack_vec(intr, 3))
+    pinhole = torch.tensor([k[0][0], k[1][1], k[0][2], k[1][2]])
+    uv, y = torch.empty((2, n)), torch.empty((3, n))
+    host_lib.host_project(cam.data_ptr(), lmk.data_ptr(), pinhole.data_ptr(),
+                          _cuda.ptr(intr), uv.data_ptr(), y.data_ptr(), n)
+    for got, want in ((uv, torch.stack([u, v])), (y, torch.stack(y_cf))):
+        assert bool(((got - want).abs() <= RTOL * (1 + want.abs())).all())
+
+
+def _diag_state(name, pad):
+    """A warmed state one sweep past the first relinearisations, with
+    singular beliefs: two landmarks' Lambda zeroed (their means overflow)
+    and one camera's eta NaN (``_warm_state``'s padding edges stay); the
+    Huber flag set on every fifth edge (no residual here reaches it)."""
+    cfg, graph, state = _warm_state(name, pad)
+    state = gbp.gbp_sweep(state, graph, cfg).clone()
+    state.robust[::5] = True
+    seen = graph.lmk_idx[state.active > 0].unique()
+    state.lmk_bel[3:, seen[:2]] = 0.0
+    state.cam_bel[0, 1] = float("nan")
+    return cfg, graph, state
+
+
+@pytest.mark.parametrize("name,pad", [("pinhole", None), ("snavely", None),
+                                      ("large", None), ("large odd", 1)])
+@pytest.mark.parametrize("masked", [False, True], ids=["all", "bad"])
+def test_host_built_diag_matches_plain(host_lib, name, pad, masked):
+    """H6's per-edge body and both passes (csrc/diag.cuh: ``diag_edge``,
+    ``diag_thread_edges``, ``diag_tree_level``, ``diag_thread_partials``,
+    ``diag_finish``) on the plain belief tables against
+    ``edge_sums_reference``, on states with singular beliefs, padding
+    edges (odd and unpadded for "large odd"), several pass-1 blocks for
+    the large ones and, ``bad``, a tenth of the edges marked bad: the
+    counts equal (the tables' validity flags exclude exactly the edges
+    whose unsanitised means give a non-finite norm), the float sums within
+    1e-4 of the sum of |terms| (the host's sinf/cosf), the same bits on a
+    rerun."""
+    cfg, graph, state = _diag_state(name, pad)
+    e = graph.n_edges
+    if pad == 1:
+        assert e % 2 == 1 and bool((state.active > 0).all())
+    else:
+        assert not bool((state.active > 0).all())
+    bad = None
+    if masked:
+        bad = torch.tensor(np.random.default_rng(4).random(e) < 0.1)
+    tables = table_kernel.build_tables(state.cam_bel, state.lmk_bel)
+    args = diag_kernel.diag_args(state, graph, tables,
+                                 cfg.num_undamped_iters, bad)
+    blocks = -(-e // 2048)
+    if name.startswith("large"):
+        assert blocks > 1
+
+    def host():
+        partial = torch.empty((5, blocks), dtype=torch.float64)
+        out = torch.empty(5, dtype=torch.float64)
+        host_lib.host_diag(ctypes.addressof(args), partial.data_ptr(),
+                           out.data_ptr())
+        return out, partial
+
+    out, partial = host()
+    ref = diag_kernel.edge_sums(state, graph, cfg.num_undamped_iters, bad)
+    counts = [diag_kernel.SUMS.index(c)
+              for c in ("n_active", "n_relins", "n_robust")]
+    assert torch.equal(out[counts], ref[counts])
+    assert bool((out[1:3] - ref[1:3]).abs().le(RTOL * ref[1:3]).all())
+    # the singular beliefs and the mask took edges out; sweeps relinearised
+    live = (state.active > 0) & (True if bad is None else ~bad)
+    assert 0 < ref[0] < int(live.sum())
+    assert ref[3] > 0 and ref[4] > 0
+    # pass 2 adds the blocks' partials; a rerun repeats every bit
+    np.testing.assert_allclose(
+        partial.sum(1).numpy() * [1, 1, 0.5, 1, 1], out.numpy(), rtol=1e-12)
+    again, _ = host()
+    assert torch.equal(again, out)

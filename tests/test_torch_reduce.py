@@ -112,3 +112,36 @@ def test_chunk_plan_sizes():
     assert graph.lmk_seg.perm is None and graph.lmk_seg.plan is None
     assert graph.n_edges % 2 == 1         # an odd, ragged last chunk
     _check_plan(graph.cam_seg)
+
+
+@pytest.mark.parametrize("kind", ["cameras shuffled", "group pairs"])
+def test_plain_segment_sum_keeps_its_cpu_bits(kind):
+    """The plain segmented sum on the CPU (``segment_sum_reference``; on a
+    card it runs under PyTorch's deterministic algorithms instead) adds a
+    variable's edges one at a time in listed order, then the prior: the
+    same bits as NumPy's unbuffered ``np.add.at`` in float32, on permuted
+    segments of hundreds of edges per variable whose terms span six
+    decades, so that any other order would show."""
+    from gbp_poplar_tpu_torch.ops import reduce_kernel
+
+    g = _graph(True)
+    seg = (g.cam_seg if kind == "cameras shuffled"
+           else coarse.group_segments(g, 4).edge_pair)
+    assert seg.perm is not None
+    n = seg.var.shape[0]
+    assert n / seg.n_var > 500
+    rng = np.random.default_rng(9)
+    rows = (rng.normal(0, 1, (27, n)) * 10.0 ** rng.integers(-3, 3, (27, n))
+            ).astype(np.float32)
+    prior = rng.normal(0, 1, (27, seg.n_var)).astype(np.float32)
+    got = reduce_kernel.segment_sum(torch.tensor(rows), seg,
+                                    torch.tensor(prior))
+    want = np.zeros((27, seg.n_var), np.float32)
+    np.add.at(want, (slice(None), seg.var.numpy()),
+              rows[:, seg.perm.numpy()])
+    want = prior + want
+    np.testing.assert_array_equal(got.numpy(), want)
+    exact = prior + np.zeros((27, seg.n_var))
+    np.add.at(exact, (slice(None), seg.var.numpy()),
+              rows[:, seg.perm.numpy()].astype(np.float64))
+    assert not np.array_equal(want, exact.astype(np.float32))

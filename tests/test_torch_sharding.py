@@ -262,3 +262,71 @@ def test_the_ranks_take_the_drivers_device(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         parallel.run(_device_type, 1, device_type="cuda",
                      timeout=RANK_TIMEOUT)
+
+
+def _bad_mask(n_edges):
+    """A fifth of the padded graph's edges marked bad (seeded)."""
+    return torch.tensor(np.random.default_rng(8).random(n_edges) < 0.2)
+
+
+def _flag_edges(state, cfg, first: int):
+    """Edges whose global id (``first`` + local id) is 0 mod 3 marked as
+    just relinearised, 0 mod 4 as Huber-weighted."""
+    ids = first + torch.arange(state.damping_count.shape[0])
+    state.damping_count[ids % 3 == 0] = -cfg.num_undamped_iters
+    state.robust[ids % 4 == 0] = True
+
+
+def _diag_rank(rank):
+    """Each rank: initialise + one sweep, some edges flagged
+    (``_flag_edges``), then the five telemetry sums and the masked error
+    over every rank's edges (``group``)."""
+    torch.set_num_threads(1)
+    prob = _problem()
+    cfg = _cfg()
+    graph = build_graph(prob, cfg, rank.device)
+    solver = parallel.make_sharded_solver(rank.group, cfg)
+    g, s = solver.prepare(graph, init_state(prob, cfg, rank.device))
+    s = solver.sweep(solver.initialise(s, g), g)
+    e_loc = g.n_edges
+    _flag_edges(s, cfg, rank.rank * e_loc)
+    bad = _bad_mask(e_loc * rank.world)[rank.rank * e_loc:
+                                        (rank.rank + 1) * e_loc]
+    d = gbp.diagnostics(s, g, cfg, group=rank.group)
+    return (gbp._diag_sums(s, g, cfg, group=rank.group).numpy(),
+            [x.numpy() for x in d[:4]],
+            [x.numpy() for x in gbp.reprojection_error(s, g, bad,
+                                                       rank.group)])
+
+
+def test_telemetry_sums_match_single_device():
+    """The five telemetry sums after initialise + one sweep (some edges
+    flagged), over two gloo ranks' edge blocks (each rank's sums, then one
+    all-reduce): the counts equal one device's, the float sums within
+    BELIEF_RTOL (other orders), on every rank alike; ``diagnostics`` and
+    the error with a bad mask too."""
+    n = 2
+    results = parallel.run(_diag_rank, n, device_type="cpu",
+                           timeout=RANK_TIMEOUT)
+    prob = _problem()
+    cfg = _cfg()
+    graph = build_graph(prob, cfg, "cpu")
+    s = gbp.gbp_sweep(gbp.initialise(init_state(prob, cfg, "cpu"), graph,
+                                     cfg), graph, cfg)
+    _flag_edges(s, cfg, 0)
+    one = gbp._diag_sums(s, graph, cfg).numpy()
+    d1 = gbp.diagnostics(s, graph, cfg)
+    padded = -(-graph.n_edges // n) * n
+    bad = _bad_mask(padded)[:graph.n_edges]
+    e1 = gbp.reprojection_error(s, graph, bad)
+    sums, diag, masked = results[0]
+    assert one[0] == prob.n_edges and one[3] > 0 and one[4] > 0
+    np.testing.assert_array_equal(sums[[0, 3, 4]], one[[0, 3, 4]])
+    np.testing.assert_allclose(sums[1:3], one[1:3], rtol=BELIEF_RTOL)
+    np.testing.assert_array_equal(diag[2:], [d1.n_relins, d1.n_robust])
+    np.testing.assert_allclose(diag[:2], [d1.reproj_err, d1.cost],
+                               rtol=BELIEF_RTOL)
+    np.testing.assert_allclose(masked, [e1[0], e1[1]], rtol=BELIEF_RTOL)
+    assert masked[0] != diag[0]
+    for r in results[1:]:
+        np.testing.assert_array_equal(r[0], sums)
