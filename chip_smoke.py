@@ -21,17 +21,21 @@ the final ``ok`` line:
      over 3.35 TB/s and its operations over 67 TFLOP/s) and, for H3, the
      one library call that computes the same function
      (``torch.index_add``), per variable kind; H2 per kind and both kinds,
-     and H6's two passes, by the profiler's device time beside the events'
-     time per host call;
+     and H6 (one launch a call), by the profiler's device time beside the
+     events' time per host call, H6's time against its grid (one block,
+     one and two waves of the blocks the card holds at once) and its host
+     time a call, set up once as run_gbp sets it up and set up per call;
   4. the fused main path at the Ladybug shape (synthetic_problem_large(
      1723, 156000, 7): 1,092,000 edges, 1,092,608 padded), reference
      schedule (accel_every=0): build_graph / init_state on the card,
      initialise, run_gbp(200) with diagnostics, the launch counts of every
-     kernel, the same 200 sweeps with kernels="reference", ms/sweep of
+     kernel (exact: a sweep's post-sweep tables serve H6 and the next
+     sweep), the same 200 sweeps with kernels="reference", ms/sweep of
      both, with and without diagnostics, one diagnostics call's aten
      operations and device launches by the profiler (plain version and
-     H2 + H6), and peak device memory; then ``solve_ba`` on the small
-     pinhole problem with the library defaults (``GBPConfig()``);
+     H2 + H6) and a run_gbp sweep's with and without diagnostics (per
+     sweep, and per solve), and peak device memory; then ``solve_ba`` on
+     the small pinhole problem with the library defaults (``GBPConfig()``);
   5. the Venice shape (synthetic_problem_large(1778, 994000, 5): 4,970,000
      edges, the shape of BAL Venice-1778) with its cameras relabelled by a
      random permutation, as in an unordered photo collection, and its
@@ -78,7 +82,8 @@ the final ``ok`` line:
      diagnostics equal to (a)'s to the bit; (d) all 62
      keyframes without diagnostics: sweeps/s including insertion, the
      final error (< 3.0 px) beside the JAX package's, ms/sweep with and
-     without diagnostics; (e) the slam driver in process at 150 sweeps per
+     without diagnostics and H6's host time a call (``[diag]`` line); (e)
+     the slam driver in process at 150 sweeps per
      keyframe with --polish, --save_traj and --checkpoint, its resume from
      the final checkpoint to the same trajectory, steady-state sweeps/s
      with diagnostics and the same solve's without;
@@ -366,6 +371,85 @@ def time_tables(cam_bel, lmk_bel, where: str, card: str):
               f"events {ev:.4f} ms per host call; bound {b:.4f} ms by {by} "
               f"({b / dev:.0%} of it reached) ({card})")
     return dev, cuda_ms(lambda: fn(True), 5), b, by
+
+
+def sweep_runs(cfg, n_iters: int, iter_offset: int = 0) -> int:
+    """How many runs of sweeps ``run_gbp(..., n_iters, iter_offset=...)``
+    makes (the annealed sweeps, the dead accelerator chunks, each live
+    chunk, the leftover sweeps; each with at least one sweep): the first
+    sweep of a run builds its own tables, every later one reads the tables
+    built after the sweep before it. Mirrors run_gbp's schedule."""
+    warm = min(n_iters, max(0, 2 * cfg.steps - iter_offset))
+    runs = [warm]
+    left, off2, ce = n_iters - warm, iter_offset + warm, cfg.accel_every
+    if ce > 0 and left >= 2 * ce:
+        n_chunks = left // ce
+        n_dead = min(n_chunks,
+                     max(0, -(-(cfg.accel_start - ce - off2) // ce)))
+        if n_dead:
+            runs += [(n_dead - 1) * ce, ce]
+        runs += [ce] * (n_chunks - n_dead)
+        left -= n_chunks * ce
+    runs.append(left)
+    return sum(1 for r in runs if r > 0)
+
+
+def telemetry_host_us(state, graph, cfg) -> tuple[float, float, float]:
+    """H6's cost a call at this state's shape, on tables built here, in
+    microseconds: the launch as run_gbp makes it after each sweep (set up
+    once, ops/diag_kernel.DiagLaunch) by the host clock (the host's own
+    work alone) and by CUDA events back to back (the host's pace or the
+    device's, whichever is slower), and one ``edge_sums`` call (set up per
+    call) by events back to back."""
+    import torch
+
+    from gbp_poplar_tpu_torch.ops import diag_kernel, table_kernel
+
+    reps = 200
+    n = cfg.num_undamped_iters
+    tables = table_kernel.build_tables(state.cam_bel, state.lmk_bel)
+    rows = torch.empty((reps, 5), dtype=torch.float64, device=state.pk.device)
+    launch = diag_kernel.DiagLaunch(state, graph, n, rows)
+    launch(state, tables, 0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for j in range(reps):
+        launch(state, tables, j)
+    host = (time.perf_counter() - t0) / reps * 1e6
+    torch.cuda.synchronize()
+
+    def all_rows():
+        for j in range(reps):
+            launch(state, tables, j)
+
+    events = cuda_ms(all_rows, 1) / reps * 1e3
+    one = cuda_ms(lambda: diag_kernel.edge_sums(state, graph, n,
+                                                tables=tables), reps) * 1e3
+    return host, events, one
+
+
+def h6_by_edges(state, graph, cfg, tables, counts) -> list[float]:
+    """H6's device time a call (profiler) on the first n edges of
+    ``graph`` for each n of ``counts``: how its time grows with its grid
+    (one block per 1,024 edges), from one block alone to whole waves of
+    the blocks the card holds at once."""
+    from types import SimpleNamespace
+
+    from gbp_poplar_tpu_torch.ops import diag_kernel
+
+    out = []
+    for n in counts:
+        st = SimpleNamespace(pk=state.pk, active=state.active[:n],
+                             damping_count=state.damping_count[:n],
+                             robust=state.robust[:n])
+        g = SimpleNamespace(
+            n_edges=n, n_keyframes=graph.n_keyframes, n_points=graph.n_points,
+            cam_idx=graph.cam_idx[:n], lmk_idx=graph.lmk_idx[:n],
+            meas=graph.meas[:, :n].contiguous(), intr=None, k=graph.k)
+        out.append(device_ms(lambda: diag_kernel.edge_sums(
+            st, g, cfg.num_undamped_iters, tables=tables), TIMED_SWEEPS,
+            "diag_sums", per_call=True))
+    return out
 
 
 def diag_bytes(graph, bad) -> int:
@@ -905,7 +989,11 @@ def _slam_parts(run, tmp, raw, prob, graph, cfg, dev, reset_counts,
           f"applied; launches {launches_a}")
     check(bool(np.isfinite(res_k.reproj_err).all()), "SLAM: non-finite error")
     check(len(log_k) > 0, "SLAM: no live accelerator step")
-    check(launches_a["sweep"] == n_a and launches_a["table"] >= 2 * n_a
+    # one table build a sweep (H6 and the next sweep read it), one more for
+    # the first sweep of each of a segment's runs of sweeps
+    check(launches_a["sweep"] == n_a
+          and launches_a["table"] == n_a + SLAM_SEGMENTS * sweep_runs(
+              cfg, SLAM_IBK)
           and launches_a["reduce"] >= 2 * n_a and launches_a["diag"] == n_a,
           "SLAM (a) did not go through H1, H2, H3, H6 every sweep")
     ref = dataclasses.replace(cfg, kernels="reference")
@@ -1008,6 +1096,14 @@ def _slam_parts(run, tmp, raw, prob, graph, cfg, dev, reset_counts,
     print(f"[slam] (d) anneal-free sweeps on the full graph, accelerator "
           f"off: {rates[False]:.4f} ms/sweep without diagnostics, "
           f"{rates[True]:.4f} with per-sweep diagnostics ({card})")
+    host, events, one = telemetry_host_us(s, graph, cfg)
+    print(f"[diag] fr1desk shape ({graph.n_edges} padded edges): "
+          f"{rates[False]:.4f} ms/sweep without diagnostics, "
+          f"{rates[True]:.4f} with them (+{rates[True] - rates[False]:.4f}"
+          f"); H6 as run_gbp launches it (set up once a solve) {host:.2f} "
+          f"us a call by the host clock, {events:.2f} us by events back to "
+          f"back; set up per call (edge_sums) {one:.2f} us by events "
+          f"({card})")
     del res_d, s
 
     # (e) the slam driver in process, and its resume from the final
@@ -1057,7 +1153,7 @@ def _slam_parts(run, tmp, raw, prob, graph, cfg, dev, reset_counts,
           f"(keyframe {raw.n_keyframes}), the same trajectory: {same_traj}; "
           f"steady state {steady} sweeps/s with per-sweep diagnostics; "
           f"the same solve without diagnostics {n_e / wall_e:.1f} sweeps/s "
-          f"({card})")
+          f"(with them at {steady / (n_e / wall_e):.1%} of it) ({card})")
     check(same_traj and f"at keyframe {raw.n_keyframes}" in err2,
           "slam driver: resumed trajectory differs")
     del res_e
@@ -1984,17 +2080,34 @@ def main() -> int:
     # H2 by the profiler's device time (its events' time is the host's)
     h2_ms, h2_plain, h2_b, h2_by = time_tables(
         state_l.cam_bel, state_l.lmk_bel, "the Ladybug shape", card)
-    # H6 by the profiler's device time, both passes per call, on the
-    # tables of this state
+    # H6 by the profiler's device time, one launch a call, on the tables
+    # of this state
     def h6(reference=False):
         return diag_kernel.edge_sums(state_l, graph_l, cfg.num_undamped_iters,
                                      tables=(ct, lt), reference=reference)
 
-    h6_ms = device_ms(h6, TIMED_SWEEPS, "diag_pass", per_call=True)
-    pass1 = device_ms(h6, TIMED_SWEEPS, "diag_pass1")
+    h6_ms = device_ms(h6, TIMED_SWEEPS, "diag_sums", per_call=True)
+    h6_launch = device_ms(h6, TIMED_SWEEPS, "diag_sums")
+    h6_ops = op_counts(h6)
+    host, events, one = telemetry_host_us(state_l, graph_l, cfg)
     print(f"[time] diag at the Ladybug shape: device {h6_ms:.4f} ms per "
-          f"call (both passes, profiler; pass 1 {pass1:.4f} ms), events "
-          f"{cuda_ms(h6, TIMED_SWEEPS):.4f} ms per host call ({card})")
+          f"call, {h6_launch:.4f} per launch (profiler), {h6_ops[1]} device "
+          f"launch(es) a call; events {cuda_ms(h6, TIMED_SWEEPS):.4f} ms per "
+          f"host call; host: as run_gbp launches it (set up once a solve) "
+          f"{host:.2f} us a call by the host clock, {events:.2f} us by "
+          f"events back to back, set up per call {one:.2f} us by events "
+          f"({card})")
+    check(h6_ops[1] == 1, "H6: an edge_sums call is not one device launch")
+    # its time against its grid: one block alone, then one and two waves
+    # of the blocks the card holds at once at 4 blocks an SM (its
+    # registers allow 4 blocks of 256 threads; [build] lines)
+    wave = 4 * torch.cuda.get_device_properties(0).multi_processor_count
+    counts = (1024, wave * 1024, 2 * wave * 1024)
+    by_edges = h6_by_edges(state_l, graph_l, cfg, (ct, lt), counts)
+    print("[time] diag by grid at the Ladybug shape (profiler): "
+          + ", ".join(f"{n // 1024} blocks {ms:.4f} ms"
+                      for n, ms in zip(counts, by_edges))
+          + f", all {-(-e_l // 1024)} blocks {h6_ms:.4f} ms ({card})")
     times = {
         "diag": (h6_ms, cuda_ms(lambda: h6(True), 5)),
         "sweep": (
@@ -2059,10 +2172,12 @@ def main() -> int:
     print(f"[main] launches in the Ladybug main path: {launches_l}")
     check(bool(np.isfinite(err).all()), "main path: non-finite error")
     check(err[-1] < err0, "main path: error did not fall")
-    # a sweep builds the tables twice (for H1 before it, for H6 after it);
-    # the error after initialise adds one build and one H6 launch
+    # a sweep's tables are built once, after it: H6 reads them and so does
+    # the next sweep; the first sweep of each run of sweeps builds its own,
+    # and the error after initialise adds one build and one H6 launch
     check(launches_l == {"sweep": LADYBUG_SWEEPS,
-                         "table": 2 * LADYBUG_SWEEPS + 1,
+                         "table": LADYBUG_SWEEPS + 1
+                                  + sweep_runs(cfg, LADYBUG_SWEEPS),
                          "reduce": 2 * LADYBUG_SWEEPS + 2, "sweep_planes": 0,
                          "gather": 0, "diag": LADYBUG_SWEEPS + 1},
           "main path did not go through every kernel once per sweep")
@@ -2099,19 +2214,32 @@ def main() -> int:
     # arithmetic every card path ran before H6) against H2 + H6
     before = op_counts(lambda: gbp.diagnostics(s, graph_l, ref_cfg))
     after = op_counts(lambda: gbp.diagnostics(s, graph_l, cfg))
-    # and what a sweep of run_gbp pays for them (its rows fill one buffer)
-    per_sweep = [op_counts(lambda: gbp.run_gbp(
-        s, graph_l, cfg, TIMED_SWEEPS, with_diagnostics=d,
-        iter_offset=2 * cfg.steps)) for d in (False, True)]
+    # and what a sweep of run_gbp pays for them (its rows fill one buffer):
+    # runs of n and 2n sweeps part the per-sweep count from the per-solve
+    # one (the first sweep's tables, the ticket, the rows' conversions)
+    runs = {(d, k): op_counts(lambda: gbp.run_gbp(
+        s, graph_l, cfg, k * TIMED_SWEEPS, with_diagnostics=d,
+        iter_offset=2 * cfg.steps)) for d in (False, True) for k in (1, 2)}
+    slope = {d: [(runs[d, 2][i] - runs[d, 1][i]) / TIMED_SWEEPS
+                 for i in (0, 1)] for d in (False, True)}
+    fixed = {d: [runs[d, 1][i] - slope[d][i] * TIMED_SWEEPS for i in (0, 1)]
+             for d in (False, True)}
     print(f"[diag] one diagnostics call at the Ladybug shape, by "
           f"torch.profiler: plain version {before[0]} aten operations (top "
           f"level) and {before[1]} device launches; H2 + H6 {after[0]} aten "
           f"operations and {after[1]} device launches; run_gbp over "
           f"{TIMED_SWEEPS} sweeps, per sweep without diagnostics "
-          f"{per_sweep[0][0] / TIMED_SWEEPS:.2f} aten operations and "
-          f"{per_sweep[0][1] / TIMED_SWEEPS:.2f} device launches, with them "
-          f"{per_sweep[1][0] / TIMED_SWEEPS:.2f} and "
-          f"{per_sweep[1][1] / TIMED_SWEEPS:.2f}")
+          f"{runs[False, 1][0] / TIMED_SWEEPS:.2f} aten operations and "
+          f"{runs[False, 1][1] / TIMED_SWEEPS:.2f} device launches, with them "
+          f"{runs[True, 1][0] / TIMED_SWEEPS:.2f} and "
+          f"{runs[True, 1][1] / TIMED_SWEEPS:.2f}; each further sweep "
+          f"without diagnostics {slope[False][0]:.2f} aten operations and "
+          f"{slope[False][1]:.2f} device launches, with them "
+          f"{slope[True][0]:.2f} and {slope[True][1]:.2f}; per solve "
+          f"besides {fixed[False][0]:.0f} and {fixed[False][1]:.0f} without,"
+          f" {fixed[True][0]:.0f} and {fixed[True][1]:.0f} with them")
+    check(slope[True][1] <= slope[False][1] + 1,
+          "run_gbp: diagnostics add more than one device launch a sweep")
     del s, s_r, s0, graph_l, diag, diag_r
     torch.cuda.empty_cache()
 

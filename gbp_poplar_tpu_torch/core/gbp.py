@@ -26,9 +26,11 @@ their plain PyTorch versions, chosen by the tensors' device and
        per edge, in place on the packed edge state;
   and then, for both:
     3. ops/reduce_kernel.segment_sum: beliefs = priors + message sums;
-    4. with diagnostics, the tables of the new beliefs and
-       ops/diag_kernel.edge_sums: the telemetry's five sums, written into
-       one [n, 5] buffer per solve on the device.
+    4. with diagnostics, the tables of the new beliefs and the
+       telemetry's five sums (ops/diag_kernel: H6 set up once per solve),
+       written into one [n, 5] buffer per solve on the device; the next
+       fused sweep of the same run reads those tables in place of building
+       its own.
 
 Around the solve: ``recenter_priors`` and ``weaken_priors`` edit the
 priors, and ``reprojection_error`` / ``map_cost`` take an optional mask of
@@ -413,15 +415,18 @@ def edge_math(
 
 
 def gbp_sweep(state: GBPState, graph: GBPGraph, cfg: GBPConfig,
-              group=None, lmk_sharded: bool = False) -> GBPState:
+              group=None, lmk_sharded: bool = False,
+              tables=None) -> GBPState:
     """One synchronous sweep, in place on the edge state, then the belief
     update (``group``, ``lmk_sharded``: see ``update_beliefs``).
     ``cfg.fused``: belief tables and the fused per-edge sweep; otherwise
-    the beliefs gathered per edge and the unfused sweep."""
+    the beliefs gathered per edge and the unfused sweep. ``tables``: the
+    belief tables of the current beliefs (``_tables``), which the fused
+    sweep reads in place of building them (``run_gbp`` passes the ones it
+    built after the previous sweep); the unfused sweep reads none."""
     ref = cfg.kernels == "reference"
     if cfg.fused:
-        cam_tbl, lmk_tbl = table_kernel.build_tables(
-            state.cam_bel, state.lmk_bel, reference=ref)
+        cam_tbl, lmk_tbl = _tables(state, cfg) if tables is None else tables
         sweep_kernel.sweep(state, graph, cam_tbl, lmk_tbl, cfg, reference=ref)
     else:
         bc = reduce_kernel.gather(state.cam_bel, graph.cam_idx, reference=ref)
@@ -445,16 +450,15 @@ class Diagnostics(NamedTuple):
 
 
 def _diag_sums(state: GBPState, graph: GBPGraph, cfg: GBPConfig | None,
-               bad=None, tables=None, out=None, group=None) -> torch.Tensor:
+               bad=None, out=None, group=None) -> torch.Tensor:
     """The five telemetry sums (ops/diag_kernel.SUMS) over this graph's
     edges, float64 [5] (written into ``out`` if given): H6 on the tables
-    of the current beliefs (``tables``, built if None), or the plain
-    version on the CPU or with ``cfg.kernels == "reference"``. With
-    ``group`` the sums run over every rank's edges, in one collective."""
+    of the current beliefs, or the plain version on the CPU or with
+    ``cfg.kernels == "reference"``. With ``group`` the sums run over every
+    rank's edges, in one collective."""
     sums = diag_kernel.edge_sums(
         state, graph, 0 if cfg is None else cfg.num_undamped_iters, bad,
-        tables=tables, out=out,
-        reference=cfg is not None and cfg.kernels == "reference")
+        out=out, reference=cfg is not None and cfg.kernels == "reference")
     if group is not None:
         sums.copy_(comm.all_sum(group, [sums])[0])
     return sums
@@ -512,16 +516,18 @@ def initialise(state: GBPState, graph: GBPGraph, cfg: GBPConfig,
 
 
 def iteration(state: GBPState, graph: GBPGraph, cfg: GBPConfig,
-              i: int, group=None, lmk_sharded: bool = False) -> GBPState:
+              i: int, group=None, lmk_sharded: bool = False,
+              tables=None) -> GBPState:
     """One scheduled iteration: weaken priors on every 2nd iteration
     (flag-gated, so annealing stops after ``steps`` applications), then one
-    sweep. As in the JAX package, the sweep's prep step sees beliefs one
-    prior refresh stale on those iterations; its closing belief update
-    applies the new priors."""
+    sweep (``tables``: see ``gbp_sweep``; the annealing leaves the beliefs,
+    and so their tables, as they were). As in the JAX package, the sweep's
+    prep step sees beliefs one prior refresh stale on those iterations; its
+    closing belief update applies the new priors."""
     if (i + 1) % 2 == 0:
         state = _anneal_priors(state, graph, state.cam_weaken > 0,
                                state.lmk_weaken > 0)
-    return gbp_sweep(state, graph, cfg, group, lmk_sharded)
+    return gbp_sweep(state, graph, cfg, group, lmk_sharded, tables)
 
 
 # ---------------------------------------------------------------------------
@@ -866,32 +872,43 @@ def run_gbp(state: GBPState, graph: GBPGraph, cfg: GBPConfig, n_iters: int,
     # row j: sweep j's five sums (_diag_sums), filled in place on the device
     rows = (torch.empty((n_iters, len(diag_kernel.SUMS)), dtype=torch.float64,
                         device=state.pk.device) if with_diagnostics else None)
+    # on a card, H6 set up once for the whole solve: one ctypes call a sweep
+    launch = None
+    if (with_diagnostics and n_iters and cfg.kernels != "reference"
+            and state.pk.device.type != "cpu"):
+        launch = diag_kernel.DiagLaunch(state, graph, cfg.num_undamped_iters,
+                                        rows)
     cam_means = []
     done = 0
 
     def sweeps(s, n, collect=False, anneal_from=None):
         """``n`` sweeps (annealed iterations from index ``anneal_from``);
         with ``collect``, also the sum of the post-sweep sanitised means.
-        The post-sweep tables serve both the diagnostics and the means."""
+        The post-sweep tables serve the diagnostics, the means and the next
+        sweep of this call, which would build the same tables from the same
+        beliefs."""
         nonlocal done
         sums = None
         if collect:
             sums = (torch.zeros_like(s.cam_bel[:CAM_DOF]),
                     torch.zeros_like(s.lmk_bel[:LMK_DOF]))
+        tables = None
         for j in range(n):
             if anneal_from is not None:
                 s = iteration(s, graph, cfg, anneal_from + j, group=group,
-                              lmk_sharded=lmk_sharded)
+                              lmk_sharded=lmk_sharded, tables=tables)
             else:
                 s = gbp_sweep(s, graph, cfg, group=group,
-                              lmk_sharded=lmk_sharded)
-            tables = None
-            if collect or (with_diagnostics and cfg.kernels != "reference"
-                           and s.pk.device.type != "cpu"):
-                tables = _tables(s, cfg)
+                              lmk_sharded=lmk_sharded, tables=tables)
+            tables = (_tables(s, cfg) if collect or launch is not None
+                      else None)
             if with_diagnostics:
-                _diag_sums(s, graph, cfg, tables=tables, out=rows[done],
-                           group=group)
+                if launch is None:
+                    _diag_sums(s, graph, cfg, out=rows[done], group=group)
+                else:
+                    launch(s, tables, done)
+                    if group is not None:
+                        rows[done] = comm.all_sum(group, [rows[done]])[0]
                 if verbose_means:
                     cam_means.append(_variable_means(s)[0])
             if collect:

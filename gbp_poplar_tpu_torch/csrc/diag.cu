@@ -11,81 +11,156 @@
 // damping counter and robust flag (25 B; 12 more with per-edge intrinsics,
 // 1 with a bad mask), and per variable its mean and flag from the tables
 // (28 B a camera, 16 B a landmark): 8.9 us at the Ladybug shape. The
-// projection's float operations take a small part of that at the card's
-// float32 rate.
+// projection's float operations take a smaller part of that at the card's
+// float32 rate, but its sin, cos, divisions and square roots are many
+// instructions each, so the kernel needs much of the card's instruction rate.
 //
-// Design: two launches, no atomics, so the sums are the same from run to
-// run. Pass 1: a block of 256 threads per 2,048 consecutive edges, each
-// thread its 8 edges strided by 256 (every load coalesced across the
-// block; the table rows by index, cached: consecutive edges share a
-// landmark and a handful of cameras), a fixed tree in shared memory, one
-// partial per block. Pass 2: one block adds the partials in block order.
-// The plain version (ops/diag_kernel.edge_sums_reference) solves the
-// means, gathers and projects in about 400 separate PyTorch operations
-// (415 by torch.profiler on an H100, 375 device launches).
+// Design: one launch over a grid that fills the card (diag.cuh's
+// partition: 4 edges a thread, blocks of 256). A thread reads the ids of
+// its 4 edges before any table row, so the row gathers that depend on them
+// are in flight together: latency, not bandwidth, limited the two-pass
+// version of this kernel, whose threads walked 8 edges one after another.
+// The rotation R(w) of a camera's mean, most of the projection's sin, cos
+// and divisions, is computed once per distinct camera of a warp's edges
+// where they have at most 32 (WarpRotations). A block sums its threads by
+// warp shuffles in a fixed order and its 8 warps in order, writes its
+// partial, and takes a ticket; the block that draws the last ticket adds
+// all partials in block order with the same tree, reading them from L2
+// (a fold by the first warp alone, the others leaving early, ran slower).
+// So the sums are the same bits from run to run whichever block finishes
+// last. The ticket (atomicInc with gridDim.x - 1) wraps back to 0, ready
+// for the next launch; it belongs to the launch's owner
+// (ops/diag_kernel.DiagLaunch), which zeroes it once. The plain version
+// (ops/diag_kernel.edge_sums_reference) solves the means, gathers and
+// projects in about 400 separate PyTorch operations (415 by torch.profiler
+// on an H100, 375 device launches).
 #include <cuda_runtime.h>
 
 #include "diag.cuh"
 
 namespace gbp {
+namespace {
 
-__global__ void __launch_bounds__(DIAG_THREADS)
-diag_pass1(const DiagArgs a, double* __restrict__ partial) {
-  __shared__ double sums[DIAG_SUMS * DIAG_THREADS];
-  const int t = threadIdx.x;
-  double acc[DIAG_SUMS];
-  diag_thread_edges(a, blockIdx.x, t, acc);
+constexpr unsigned FULL_WARP = 0xffffffffu;
+
+// diag.cuh's PerEdgeRotations shared across a warp: where the warp's
+// edges (32 lanes x DIAG_EDGES_PER_THREAD) have at most 32 distinct
+// cameras (about 7 at the Ladybug shape, whose edges run by landmark),
+// lane j computes the j-th distinct camera's rotation once and each edge
+// reads its camera's from that lane by shuffles; with more (cameras in no
+// order, as at the Venice shape) every lane computes its own. ``cams`` is
+// the warp's 32 ints of shared memory.
+struct WarpRotations {
+  int* cams;
+  float r[3][3];                          // lane j's camera's rotation
+  int slot[DIAG_EDGES_PER_THREAD];        // the lane holding edge k's
+  bool shared;
+
+  __device__ __forceinline__ void prepare(const DiagArgs& a,
+                                          const int ci[]) {
+    const unsigned lane = threadIdx.x & 31;
+    int distinct = 0;
 #pragma unroll
-  for (int k = 0; k < DIAG_SUMS; ++k) sums[k * DIAG_THREADS + t] = acc[k];
-  __syncthreads();
-#pragma unroll
-  for (int h = DIAG_THREADS / 2; h > 0; h >>= 1) {
-    if (t < h) diag_tree_level(sums, h, t);
-    __syncthreads();
+    for (int k = 0; k < DIAG_EDGES_PER_THREAD; ++k) {
+      // the lanes of edge k that share its camera, the lowest leading
+      const unsigned peers = __match_any_sync(FULL_WARP, ci[k]);
+      const unsigned leader = __ffs(peers) - 1;
+      const unsigned leaders = __ballot_sync(FULL_WARP, lane == leader);
+      slot[k] = distinct + __popc(leaders & ((1u << leader) - 1));
+      if (lane == leader && slot[k] < 32) cams[slot[k]] = ci[k];
+      distinct += __popc(leaders);
+    }
+    shared = distinct <= 32;
+    if (!shared) return;
+    __syncwarp();
+    const int cam = (int)lane < distinct ? cams[lane] : ci[0];
+    so3_exp(a.cam_tbl + (long long)cam * CAM_WIDTH + CAM_MU + 3, r);
   }
-  if (t < DIAG_SUMS)
-    partial[(long long)t * gridDim.x + blockIdx.x] = sums[t * DIAG_THREADS];
+
+  __device__ __forceinline__ void get(const DiagArgs& a, int k, int ci,
+                                      float out[3][3]) const {
+    if (!shared) {
+      so3_exp(a.cam_tbl + (long long)ci * CAM_WIDTH + CAM_MU + 3, out);
+      return;
+    }
+#pragma unroll
+    for (int i = 0; i < 3; ++i)
+#pragma unroll
+      for (int j = 0; j < 3; ++j)
+        out[i][j] = __shfl_sync(FULL_WARP, r[i][j], slot[k]);
+  }
+};
+
+// The block's sums into thread 0's ``acc``: each warp's lanes by the fixed
+// tree (lane l adds lane l + h, h = 16 ... 1; lane 0 ends with the warp's
+// sum), then the warps in ascending order. ``warp`` is the block's shared
+// [DIAG_WARPS][DIAG_SUMS]; every thread of the block must call this.
+__device__ __forceinline__ void block_sums(double acc[DIAG_SUMS],
+                                           double (*warp)[DIAG_SUMS]) {
+#pragma unroll
+  for (int h = 16; h > 0; h >>= 1)
+#pragma unroll
+    for (int k = 0; k < DIAG_SUMS; ++k)
+      acc[k] = acc[k] + __shfl_down_sync(FULL_WARP, acc[k], h);
+  if ((threadIdx.x & 31) == 0)
+#pragma unroll
+    for (int k = 0; k < DIAG_SUMS; ++k) warp[threadIdx.x >> 5][k] = acc[k];
+  __syncthreads();
+  if (threadIdx.x == 0) diag_fold_warps(warp, acc);
 }
 
-__global__ void __launch_bounds__(DIAG_THREADS)
-diag_pass2(const double* __restrict__ partial, long long n_blocks,
-           double* __restrict__ out) {
-  __shared__ double sums[DIAG_SUMS * DIAG_THREADS];
-  const int t = threadIdx.x;
-  double acc[DIAG_SUMS];
-  diag_thread_partials(partial, n_blocks, t, acc);
-#pragma unroll
-  for (int k = 0; k < DIAG_SUMS; ++k) sums[k * DIAG_THREADS + t] = acc[k];
-  __syncthreads();
-#pragma unroll
-  for (int h = DIAG_THREADS / 2; h > 0; h >>= 1) {
-    if (t < h) diag_tree_level(sums, h, t);
-    __syncthreads();
+// The partials read from L2, past the SM's cache, where the other blocks'
+// writes are.
+struct L2Reads {
+  const double* p;
+  __device__ __forceinline__ double operator[](long long i) const {
+    return __ldcg(p + i);
   }
-  if (t == 0) diag_finish(sums, out);
+};
+
+}  // namespace
+
+__global__ void __launch_bounds__(DIAG_THREADS)
+diag_sums(const DiagArgs a, double* partial, unsigned* ticket,
+          double* __restrict__ out) {
+  __shared__ double warp[DIAG_WARPS][DIAG_SUMS];
+  __shared__ int cams[DIAG_WARPS][32];
+  __shared__ bool last;
+  double acc[DIAG_SUMS];
+  diag_thread_edges(a, blockIdx.x, threadIdx.x, acc,
+                    WarpRotations{cams[threadIdx.x >> 5]});
+  block_sums(acc, warp);
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int k = 0; k < DIAG_SUMS; ++k)
+      partial[(long long)k * gridDim.x + blockIdx.x] = acc[k];
+    __threadfence();          // the partial is visible before the ticket
+    last = atomicInc(ticket, gridDim.x - 1) == gridDim.x - 1;
+  }
+  __syncthreads();
+  if (!last) return;
+  __threadfence();            // every other block's partial is visible
+  diag_thread_partials(L2Reads{partial}, gridDim.x, threadIdx.x, acc);
+  block_sums(acc, warp);
+  if (threadIdx.x == 0) diag_finish(acc, out);
 }
 
 }  // namespace gbp
 
-// The number of pass-1 blocks (and partials per sum) for n_edges edges.
+// The grid's blocks (and partials per sum) for n_edges edges.
 extern "C" long long gbp_diag_blocks(long long n_edges) {
   return gbp::diag_blocks(n_edges);
 }
 
-// Both passes on ``stream``: ``partial`` holds DIAG_SUMS x
-// gbp_diag_blocks(n_edges) doubles, ``out`` the DIAG_SUMS results (zeros
-// without edges).
+// One launch on ``stream``: ``partial`` holds DIAG_SUMS x
+// gbp_diag_blocks(n_edges) doubles, ``ticket`` one unsigned that is 0
+// before the launch and is left 0 after it, ``out`` the DIAG_SUMS results
+// (zeros without edges).
 extern "C" int gbp_diag_launch(const gbp::DiagArgs* args, double* partial,
-                               double* out, void* stream) {
+                               unsigned* ticket, double* out, void* stream) {
   const long long blocks = gbp::diag_blocks(args->n_edges);
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-  if (blocks > 0) {
-    gbp::diag_pass1<<<(unsigned)blocks, gbp::DIAG_THREADS, 0, s>>>(*args,
-                                                                  partial);
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-  }
-  gbp::diag_pass2<<<1, gbp::DIAG_THREADS, 0, s>>>(partial, blocks, out);
+  gbp::diag_sums<<<(unsigned)blocks, gbp::DIAG_THREADS, 0,
+                   (cudaStream_t)stream>>>(*args, partial, ticket, out);
   return (int)cudaGetLastError();
 }

@@ -176,19 +176,16 @@ __device__ __forceinline__ void so3_exp(const float w[3], float r[3][3]) {
   r[2][2] = 1.0f - b * (xx + yy);
 }
 
-// The camera-frame point y_cf = R(w) lmk + t of camera [t | w] and its
-// pixel (u, v) (planes.w2c_apply, planes.project): the pinhole model (fx,
-// fy, cx, cy), or with ``has_intr`` the Snavely/BAL model on ``intr`` = [f,
-// k1, k2] (the camera looks down -z). The sweep's relinearisation
-// (edge_math.cuh linearise) and the telemetry (diag.cuh diag_edge) both
-// project here.
-__device__ __forceinline__ void project(const float cam[6],
-                                        const float lmk[3], float fx,
-                                        float fy, float cx, float cy,
-                                        bool has_intr, const float intr[3],
-                                        float r[3][3], float y_cf[3],
-                                        float& u, float& v) {
-  so3_exp(cam + 3, r);
+// ``project`` with the camera's rotation r = R(w) (so3_exp of cam[3..5])
+// already computed.
+__device__ __forceinline__ void project_rotated(const float r[3][3],
+                                                const float cam[6],
+                                                const float lmk[3], float fx,
+                                                float fy, float cx, float cy,
+                                                bool has_intr,
+                                                const float intr[3],
+                                                float y_cf[3], float& u,
+                                                float& v) {
 #pragma unroll
   for (int i = 0; i < 3; ++i)
     y_cf[i] = (r[i][0] * lmk[0] + r[i][1] * lmk[1] + r[i][2] * lmk[2])
@@ -205,6 +202,22 @@ __device__ __forceinline__ void project(const float cam[6],
     u = intr[0] * dist * px;
     v = intr[0] * dist * py;
   }
+}
+
+// The camera-frame point y_cf = R(w) lmk + t of camera [t | w] and its
+// pixel (u, v) (planes.w2c_apply, planes.project): the pinhole model (fx,
+// fy, cx, cy), or with ``has_intr`` the Snavely/BAL model on ``intr`` = [f,
+// k1, k2] (the camera looks down -z). The sweep's relinearisation
+// (edge_math.cuh linearise) projects here, the telemetry (diag.cuh
+// diag_edge) by project_rotated on the same rotation.
+__device__ __forceinline__ void project(const float cam[6],
+                                        const float lmk[3], float fx,
+                                        float fy, float cx, float cy,
+                                        bool has_intr, const float intr[3],
+                                        float r[3][3], float y_cf[3],
+                                        float& u, float& v) {
+  so3_exp(cam + 3, r);
+  project_rotated(r, cam, lmk, fx, fy, cx, cy, has_intr, intr, y_cf, u, v);
 }
 
 // out = a @ b for R x K times K x C (planes.matmul: left-to-right sums)

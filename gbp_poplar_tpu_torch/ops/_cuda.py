@@ -117,7 +117,7 @@ def library() -> ctypes.CDLL:
     lib.gbp_reduce_chunks_smem.restype = i
     lib.gbp_diag_blocks.argtypes = [ll]
     lib.gbp_diag_blocks.restype = ll
-    lib.gbp_diag_launch.argtypes = [p] * 4
+    lib.gbp_diag_launch.argtypes = [p] * 5
     for fn in (lib.gbp_tables_launch, lib.gbp_reduce_launch,
                lib.gbp_reduce_chunks_launch, lib.gbp_sweep_launch,
                lib.gbp_sweep_planes_launch, lib.gbp_gather_launch,

@@ -15,19 +15,22 @@ the validity mask; over all edges, five sums, in this order (``SUMS``):
   - ``n_robust``: active edges with the Huber weight on.
 
 The result is a float64 [5] tensor (counts exact), written into ``out`` if
-given: ``core.gbp.run_gbp`` passes row j of one [n, 5] buffer per solve.
+given. ``core.gbp.run_gbp`` sets the kernel up once per solve
+(``DiagLaunch``) and writes row j of one [n, 5] buffer after sweep j with
+one ctypes call; ``edge_sums`` sets it up for one call.
 
 Kernel (csrc/diag.cu, bodies in csrc/diag.cuh): reads the belief tables
 that ops/table_kernel.build_tables (H2) builds after the sweep, whose mean
 is ``variable_means``'s wherever finite and whose flag excludes an edge
 with a non-finite mean (the plain version's unsanitised mean gives that
 edge a non-finite norm instead); projects with the sweep's projection
-(planes.cuh ``project``); sums in two passes in one fixed order (a block
-per 2,048 edges with a fixed tree, then the blocks in order), all five in
-float64, so the result is the same from run to run and the float sums are
-within 1e-5 of the sum of |terms| of the plain version's float32 sums.
-Bound on the H100: bytes (25 B an edge, the means and flags of the tables
-once).
+(planes.cuh ``project``); sums in one launch in one fixed order (4 edges a
+thread, warp shuffles and the warps in order per block of 1,024 edges,
+then the block that finishes last adds the partials in block order), all
+five in float64, so the result is the same from run to run and the float
+sums are within 1e-5 of the sum of |terms| of the plain version's float32
+sums. Bound on the H100: bytes (25 B an edge, the means and flags of the
+tables once).
 """
 
 from __future__ import annotations
@@ -88,11 +91,13 @@ def edge_sums_reference(state, graph, num_undamped_iters: int,
 
 def diag_args(state, graph, tables, num_undamped_iters: int,
               bad=None) -> DiagArgs:
-    """The kernel's operands: pointers into the (checked) tensors."""
-    cam_tbl, lmk_tbl = tables
+    """The kernel's operands: pointers into the (checked) tensors; the
+    table pointers null when ``tables`` is None (``DiagLaunch`` sets them
+    per call)."""
+    cam_tbl, lmk_tbl = (None, None) if tables is None else tables
     k = graph.k
     return DiagArgs(
-        cam_tbl.data_ptr(), lmk_tbl.data_ptr(), graph.cam_idx.data_ptr(),
+        _cuda.ptr(cam_tbl), _cuda.ptr(lmk_tbl), graph.cam_idx.data_ptr(),
         graph.lmk_idx.data_ptr(), graph.meas.data_ptr(),
         _cuda.ptr(graph.intr), state.active.data_ptr(),
         state.damping_count.data_ptr(), state.robust.data_ptr(),
@@ -108,6 +113,115 @@ def _check(what, t, shape, dtype, device) -> None:
                          f"{tuple(t.shape)} on {t.device}")
 
 
+class _Scratch:
+    """H6's scratch on one device: the blocks' partials (float64 [5,
+    blocks]) and the ticket (one 32-bit counter, zeroed once here; every
+    launch leaves it at 0). Two launches in flight at once must not share
+    one."""
+
+    def __init__(self, device, blocks: int):
+        self.blocks = blocks
+        self.partial = torch.empty(len(SUMS) * blocks, dtype=torch.float64,
+                                   device=device)
+        self.ticket = torch.zeros(1, dtype=torch.int32, device=device)
+
+
+# the one-off calls' scratch, one per (device, stream), so that a call is
+# one launch (a fresh ticket would need zeroing first); launches on one
+# stream run one after another
+_shared = {}
+
+
+class DiagLaunch:
+    """H6 set up once for a solve: the checks of the state's and graph's
+    edge fields and of ``out``, the kernel's operands (``DiagArgs``), the
+    partials and ticket (``scratch``, allocated here if None or too small)
+    and the address of ``out`` (float64 [n, 5] or [5], contiguous on the
+    card) are built here, and a call ``launch(state, tables, j)`` sets the
+    two table pointers, points the kernel at row j of ``out`` and makes one
+    ctypes call. ``tables`` are H2's (ops/table_kernel.build_tables) on
+    this graph's variables; they are not checked per call. Each call
+    compares the pointers it holds into the state (``active``,
+    ``damping_count``, ``robust``), the graph and ``bad`` with the live
+    tensors' and sets up again on a mismatch, so a replaced tensor is never
+    read through an old pointer. The launch goes on ``stream`` (a raw
+    cudaStream_t), by default the stream that was current here."""
+
+    def __init__(self, state, graph, num_undamped_iters: int,
+                 out: torch.Tensor, bad: torch.Tensor | None = None,
+                 scratch: _Scratch | None = None, stream: int | None = None):
+        device = state.pk.device
+        if device.type != "cuda":
+            raise ValueError(f"edge_sums: unsupported device {device}")
+        if (out.dtype != torch.float64 or out.dim() not in (1, 2)
+                or out.shape[-1] != len(SUMS) or not out.is_contiguous()
+                or out.device != device):
+            raise ValueError(f"edge_sums: out must be contiguous float64 "
+                             f"[n, {len(SUMS)}] or [{len(SUMS)}] on {device}"
+                             f", got {out.dtype} {tuple(out.shape)} on "
+                             f"{out.device}")
+        self.graph, self.bad, self.device = graph, bad, device
+        self.num_undamped_iters = num_undamped_iters
+        self.scratch = scratch
+        self._out = out.data_ptr()
+        self._rows = 1 if out.dim() == 1 else out.shape[0]
+        self._row_bytes = out.element_size() * len(SUMS)
+        self._stream = _cuda.stream_ptr(out) if stream is None else stream
+        lib = _cuda.library()
+        self._blocks, self._launch = lib.gbp_diag_blocks, lib.gbp_diag_launch
+        self._prepare(state)
+
+    def _pointers(self, state) -> tuple:
+        g, bad = self.graph, self.bad
+        return (state.active.data_ptr(), state.damping_count.data_ptr(),
+                state.robust.data_ptr(), g.cam_idx.data_ptr(),
+                g.lmk_idx.data_ptr(), g.meas.data_ptr(),
+                None if g.intr is None else g.intr.data_ptr(),
+                None if bad is None else bad.data_ptr())
+
+    def _prepare(self, state) -> None:
+        g, device, e = self.graph, self.device, self.graph.n_edges
+        for what, t, shape, dtype in (
+                ("cam_idx", g.cam_idx, (e,), torch.int32),
+                ("lmk_idx", g.lmk_idx, (e,), torch.int32),
+                ("meas", g.meas, (2, e), torch.float32),
+                ("active", state.active, (e,), torch.int32),
+                ("damping_count", state.damping_count, (e,), torch.int32),
+                ("robust", state.robust, (e,), torch.bool)):
+            _check(what, t, shape, dtype, device)
+        if g.intr is not None:
+            _check("intr", g.intr, (3, e), torch.float32, device)
+        if self.bad is not None:
+            _check("bad", self.bad, (e,), torch.bool, device)
+        blocks = self._blocks(e)
+        if self.scratch is None or self.scratch.blocks < blocks:
+            self.scratch = _Scratch(device, blocks)
+        self.args = diag_args(state, g, None, self.num_undamped_iters,
+                              self.bad)
+        self._call = (ctypes.addressof(self.args),
+                      self.scratch.partial.data_ptr(),
+                      self.scratch.ticket.data_ptr())
+        self._live = self._pointers(state)
+
+    def __call__(self, state, tables, j: int = 0) -> None:
+        """The five sums of ``state`` on ``tables`` into row ``j``."""
+        if self._pointers(state) != self._live:
+            self._prepare(state)
+        self._run(tables, j)
+
+    def _run(self, tables, j: int) -> None:
+        if not 0 <= j < self._rows:
+            raise IndexError(f"edge_sums: row {j} of {self._rows}")
+        args = self.args
+        args.cam_tbl = tables[0].data_ptr()
+        args.lmk_tbl = tables[1].data_ptr()
+        err = self._launch(*self._call, self._out + self._row_bytes * j,
+                           self._stream)
+        if err:
+            _cuda.check(err, "diag kernel")
+        edge_sums.launches += 1
+
+
 def edge_sums(state, graph, num_undamped_iters: int,
               bad: torch.Tensor | None = None, tables=None,
               out: torch.Tensor | None = None,
@@ -118,7 +232,8 @@ def edge_sums(state, graph, num_undamped_iters: int,
     residual sums. ``tables``: the (cam_tbl, lmk_tbl) of
     ``table_kernel.build_tables`` on the state's current beliefs, built
     here if None. CPU tensors (or ``reference``) take the plain version;
-    CUDA tensors launch csrc/diag.cu."""
+    CUDA tensors launch csrc/diag.cu once (a ``DiagLaunch`` set up for
+    this call, on the scratch its stream shares)."""
     device = state.pk.device
     if reference or device.type == "cpu":
         sums = edge_sums_reference(state, graph, num_undamped_iters, bad)
@@ -127,35 +242,20 @@ def edge_sums(state, graph, num_undamped_iters: int,
         raise ValueError(f"edge_sums: unsupported device {device}")
     if tables is None:
         tables = table_kernel.build_tables(state.cam_bel, state.lmk_bel)
-    cam_tbl, lmk_tbl = tables
-    e = graph.n_edges
-    for what, t, shape, dtype in (
-            ("cam_tbl", cam_tbl, (graph.n_keyframes, CAM_WIDTH),
-             torch.float32),
-            ("lmk_tbl", lmk_tbl, (graph.n_points, LMK_WIDTH), torch.float32),
-            ("cam_idx", graph.cam_idx, (e,), torch.int32),
-            ("lmk_idx", graph.lmk_idx, (e,), torch.int32),
-            ("meas", graph.meas, (2, e), torch.float32),
-            ("active", state.active, (e,), torch.int32),
-            ("damping_count", state.damping_count, (e,), torch.int32),
-            ("robust", state.robust, (e,), torch.bool)):
-        _check(what, t, shape, dtype, device)
-    if graph.intr is not None:
-        _check("intr", graph.intr, (3, e), torch.float32, device)
-    if bad is not None:
-        _check("bad", bad, (e,), torch.bool, device)
+    _check("cam_tbl", tables[0], (graph.n_keyframes, CAM_WIDTH),
+           torch.float32, device)
+    _check("lmk_tbl", tables[1], (graph.n_points, LMK_WIDTH), torch.float32,
+           device)
     if out is None:
         out = torch.empty(len(SUMS), dtype=torch.float64, device=device)
     else:
         _check("out", out, (len(SUMS),), torch.float64, device)
-    lib = _cuda.library()
-    partial = torch.empty(len(SUMS) * max(lib.gbp_diag_blocks(e), 1),
-                          dtype=torch.float64, device=device)
-    args = diag_args(state, graph, tables, num_undamped_iters, bad)
-    err = lib.gbp_diag_launch(ctypes.addressof(args), partial.data_ptr(),
-                              out.data_ptr(), _cuda.stream_ptr(out))
-    _cuda.check(err, "diag kernel")
-    edge_sums.launches += 1
+    stream = _cuda.stream_ptr(out)
+    key = (device, stream)
+    launch = DiagLaunch(state, graph, num_undamped_iters, out, bad,
+                        _shared.get(key), stream)
+    _shared[key] = launch.scratch
+    launch._run(tables, 0)
     return out
 
 

@@ -353,8 +353,9 @@ def test_diag_kernel_matches_plain_on_card(cuda_device, name):
     beliefs (two landmarks' Lambda zeroed, a camera's eta NaN), with and
     without a bad mask: counts equal, float sums within 1e-5 of the sum of
     |terms| (the value: the terms are >= 0), the same bits on a rerun;
-    then run_gbp's per-sweep diagnostics through H6 (one launch and one
-    extra table build a sweep) against kernels="reference"."""
+    then run_gbp's per-sweep diagnostics through H6 (one launch a sweep;
+    one table build a sweep, after it, which the next sweep reads, and one
+    before the first) against kernels="reference"."""
     prob = (balio.synthetic_problem(n_keyframes=6, n_points=60, seed=0,
                                     pixel_noise=0.5) if name == "pinhole"
             else balio.synthetic_problem_snavely(pixel_noise=0.5))
@@ -384,13 +385,202 @@ def test_diag_kernel_matches_plain_on_card(cuda_device, name):
     table_kernel.build_tables.launches = 0
     _, dk = gbp.run_gbp(s.clone(), g, cfg, 10)
     assert diag_kernel.edge_sums.launches == 10
-    assert table_kernel.build_tables.launches == 20
+    assert table_kernel.build_tables.launches == 11
     _, dr = gbp.run_gbp(s.clone(), g, GBPConfig(accel_every=0,
                                                 kernels="reference"), 10)
     # the two runs' beliefs part by H3's other summation order
     np.testing.assert_allclose(dk.reproj_err.cpu(), dr.reproj_err.cpu(),
                                rtol=1e-3)
     assert dk.n_relins.dtype == torch.int64
+
+
+def hand_loop(state, graph, cfg, n):
+    """``run_gbp(state, graph, cfg, n)``'s sweep sequence as a plain loop
+    of ``iteration``/``gbp_sweep``, ``_diag_sums`` and ``_accel_step``,
+    every sweep building its own tables and every post-sweep read building
+    its own (``_diag_sums``, ``_sanitized_means``): the run without the
+    table carry or the prepared H6 launch. The schedule is run_gbp's at
+    iteration offset 0 (anneal, dead and live accelerator chunks,
+    leftover), without the coarse step. Returns (state, Diagnostics)."""
+    rows = []
+
+    def sweep(s, i=None, sums=None):
+        s = (gbp.gbp_sweep(s, graph, cfg) if i is None
+             else gbp.iteration(s, graph, cfg, i))
+        rows.append(gbp._diag_sums(s, graph, cfg))
+        if sums is not None:
+            mc, ml = gbp._sanitized_means(s, cfg)
+            sums = (sums[0] + mc, sums[1] + ml)
+        return s, sums
+
+    def chunk(s):
+        zeros = (torch.zeros_like(s.cam_bel[:6]),
+                 torch.zeros_like(s.lmk_bel[:3]))
+        for _ in range(ce):
+            s, zeros = sweep(s, sums=zeros)
+        return s, (zeros[0] / ce, zeros[1] / ce)
+
+    warm = min(n, 2 * cfg.steps)
+    for i in range(warm):
+        state, _ = sweep(state, i)
+    left, ce = n - warm, cfg.accel_every
+    if ce > 0 and left >= 2 * ce:
+        n_chunks = left // ce
+        degs = gbp._active_degrees(state, graph, cfg)
+        n_dead = min(n_chunks,
+                     max(0, -(-(cfg.accel_start - ce - warm) // ce)))
+        if n_dead:
+            for _ in range((n_dead - 1) * ce):
+                state, _ = sweep(state)
+            state, avg = chunk(state)
+            snap = (*avg, torch.zeros_like(avg[0]))
+        else:
+            cam_mu, lmk_mu = gbp._variable_means(state)
+            snap = (cam_mu, lmk_mu, torch.zeros_like(cam_mu))
+        for _ in range(n_dead, n_chunks):
+            state, avg = chunk(state)
+            state, snap, _ = gbp._accel_step(state, snap, avg, graph, cfg,
+                                             degs)
+        left -= n_chunks * ce
+    for _ in range(left):
+        state, _ = sweep(state)
+    return state, gbp._diagnostics_from_sums(torch.stack(rows),
+                                             state.cam_bel.dtype)
+
+
+def assert_same_run(a, b):
+    """Two runs' (state, Diagnostics) equal to the bit, NaN matching."""
+    for (k, x), y in zip(fg.state_to_numpy(a[0]).items(),
+                         fg.state_to_numpy(b[0]).values()):
+        assert np.array_equal(x, y, equal_nan=True), k
+    for x, y in zip(a[1][:4], b[1][:4]):
+        assert np.array_equal(x.cpu().numpy(), y.cpu().numpy(),
+                              equal_nan=True)
+
+
+# run_gbp's schedules for the hand loop: the Ladybug main path's (no
+# accelerator) and one with annealing, a dead chunk, live chunks and
+# leftover sweeps (22 sweeps: 4 annealed, chunks of 4 ending at 8 (dead,
+# averaging), 12, 16, 20, then 2)
+CHUNKED = dict(steps=2, accel_every=4, accel_start=12)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["ladybug", "chunks"])
+def test_run_gbp_equals_hand_loop_on_card(cuda_device, case):
+    """run_gbp with diagnostics (the post-sweep tables carried into the
+    next fused sweep, H6 set up once) against the hand loop (every sweep
+    and every read building its own tables, H6 set up per call), to the
+    bit in state and diagnostics: at the Ladybug shape on its main path's
+    config (12 sweeps), and with annealing and accelerator chunks on a
+    7,000-edge problem."""
+    if case == "ladybug":
+        prob = balio.synthetic_problem_large(1723, 156000, 7)
+        cfg, n = GBPConfig(accel_every=0), 12
+    else:
+        prob = balio.synthetic_problem_large(n_keyframes=20, n_points=1000,
+                                             obs_per_lmk=7, seed=2)
+        cfg, n = GBPConfig(**CHUNKED), 22
+    g = fg.build_graph(prob, cfg, cuda_device)
+    s = gbp.initialise(fg.init_state(prob, cfg, cuda_device), g, cfg)
+    table_kernel.build_tables.launches = 0
+    diag_kernel.edge_sums.launches = 0
+    run = gbp.run_gbp(s.clone(), g, cfg, n)
+    # one build a sweep (its tables serve the next sweep of its run), and
+    # one for the first sweep of each run of sweeps: the annealed 10 and
+    # the 2 after them at the Ladybug config; the annealed 4, the dead
+    # chunk, 3 live chunks and the 2 leftover sweeps in the chunked one
+    runs = 2 if case == "ladybug" else 6
+    assert table_kernel.build_tables.launches == n + runs
+    assert diag_kernel.edge_sums.launches == n
+    assert_same_run(run, hand_loop(s.clone(), g, cfg, n))
+
+
+@pytest.mark.cuda
+def test_diag_is_one_kernel_per_call_on_card(cuda_device):
+    """One edge_sums call on given tables is one device kernel, H6's, by
+    the profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    prob = balio.synthetic_problem_large(n_keyframes=20, n_points=1000,
+                                         obs_per_lmk=7, seed=2)
+    cfg = GBPConfig(accel_every=0)
+    g = fg.build_graph(prob, cfg, cuda_device)
+    s = gbp.initialise(fg.init_state(prob, cfg, cuda_device), g, cfg)
+    tables = table_kernel.build_tables(s.cam_bel, s.lmk_bel)
+    n = cfg.num_undamped_iters
+    diag_kernel.edge_sums(s, g, n, tables=tables)          # scratch, build
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            diag_kernel.edge_sums(s, g, n, tables=tables)
+        torch.cuda.synchronize()
+    on_card = [ev.name for ev in prof.events()
+               if ev.device_type == DeviceType.CUDA]
+    assert len(on_card) == 3 and all("diag_sums" in k for k in on_card)
+
+
+@pytest.mark.cuda
+def test_diag_ticket_resets_on_card(cuda_device):
+    """H6's sums repeat to the bit over three reruns and across calls that
+    alternate between a 7-block and a 1-block grid on the same scratch:
+    every launch leaves its ticket at 0 for the next."""
+    cfg = GBPConfig(accel_every=0)
+    cases = []
+    for prob in (balio.synthetic_problem_large(n_keyframes=20,
+                                               n_points=1000, obs_per_lmk=7,
+                                               seed=2),
+                 balio.synthetic_problem(n_keyframes=6, n_points=60, seed=0,
+                                         pixel_noise=0.5)):
+        g = fg.build_graph(prob, cfg, cuda_device)
+        s = gbp.initialise(fg.init_state(prob, cfg, cuda_device), g, cfg)
+        s, _ = gbp.run_gbp(s, g, cfg, 18, with_diagnostics=False)
+        cases.append((s, g))
+    assert cases[0][1].n_edges > 6 * 1024 and cases[1][1].n_edges <= 1024
+    n = cfg.num_undamped_iters
+    first = [diag_kernel.edge_sums(s, g, n) for s, g in cases]
+    for _ in range(3):
+        for (s, g), want in zip(cases, first):
+            assert torch.equal(diag_kernel.edge_sums(s, g, n), want)
+    for (s, g), want in zip(cases, first):
+        r = diag_kernel.edge_sums(s, g, n, reference=True)
+        assert torch.equal(want[[0, 3, 4]], r[[0, 3, 4]])
+        assert bool(((want[1:3] - r[1:3]).abs() <= 1e-5 * r[1:3]).all())
+
+
+@pytest.mark.cuda
+def test_prepared_diag_follows_replaced_tensors_on_card(cuda_device):
+    """The prepared launch (DiagLaunch, as run_gbp sets it up) against the
+    plain version after ``state.robust`` and ``state.damping_count`` are
+    replaced by changed clones between calls: it reads the new tensors,
+    not the old ones it was set up on."""
+    prob = balio.synthetic_problem_large(n_keyframes=20, n_points=1000,
+                                         obs_per_lmk=7, seed=2)
+    cfg = GBPConfig(accel_every=0)
+    g = fg.build_graph(prob, cfg, cuda_device)
+    s = gbp.initialise(fg.init_state(prob, cfg, cuda_device), g, cfg)
+    s, _ = gbp.run_gbp(s, g, cfg, 18, with_diagnostics=False)
+    n = cfg.num_undamped_iters
+    rows = torch.empty((3, 5), dtype=torch.float64, device=cuda_device)
+    launch = diag_kernel.DiagLaunch(s, g, n, rows)
+    tables = table_kernel.build_tables(s.cam_bel, s.lmk_bel)
+    launch(s, tables, 0)
+    old_robust, old_count = s.robust, s.damping_count
+    s.robust = ~old_robust                      # every Huber flag flipped
+    launch(s, tables, 1)
+    s.damping_count = torch.full_like(old_count, -n)   # all relinearised
+    launch(s, tables, 2)
+    want = [None, None, diag_kernel.edge_sums(s, g, n, reference=True)]
+    s.damping_count = old_count
+    want[1] = diag_kernel.edge_sums(s, g, n, reference=True)
+    s.robust = old_robust
+    want[0] = diag_kernel.edge_sums(s, g, n, reference=True)
+    for got, r in zip(rows, want):
+        assert torch.equal(got[[0, 3, 4]], r[[0, 3, 4]])
+        assert bool(((got[1:3] - r[1:3]).abs() <= 1e-5 * r[1:3]).all())
+    act = int((s.active > 0).sum())
+    assert rows[1, 4] == act - rows[0, 4] and rows[2, 3] == act
 
 
 def _nccl_solve(rank):

@@ -317,6 +317,47 @@ def test_run_gbp_refuses_unported_schedules(synthetic, kw):
         np.testing.assert_array_equal(err, port(0)[0])
 
 
+@pytest.mark.parametrize("fused", [True, False], ids=["fused", "unfused"])
+def test_run_gbp_equals_hand_loop(monkeypatch, fused):
+    """run_gbp on the CPU, with annealed sweeps, a dead accelerator chunk
+    averaging its means, live chunks and leftover sweeps, gives the final
+    state and diagnostics to the bit equal to the hand loop of
+    ``iteration``/``gbp_sweep``, ``_diag_sums`` and ``_accel_step`` in
+    which every sweep and every read builds its own tables. Counted: the
+    tables built after a collected sweep serve the next fused sweep of its
+    run, so a collected sweep builds them once, not twice; the unfused
+    sweep reads none and builds only the collected ones."""
+    from test_torch_cuda import CHUNKED, assert_same_run, hand_loop
+
+    built = []
+    build = table_kernel.build_tables
+
+    def counting(*args, **kw):
+        built.append(1)
+        return build(*args, **kw)
+
+    monkeypatch.setattr(table_kernel, "build_tables", counting)
+    prob = balio.synthetic_problem(n_keyframes=5, n_points=40, seed=4,
+                                   pixel_noise=0.5)
+    cfg = GBPConfig(fused=fused, **CHUNKED)
+    graph = fg.build_graph(prob, cfg, "cpu")
+    state = gbp.initialise(fg.init_state(prob, cfg, "cpu"), graph, cfg)
+    n = 22
+    log = []
+    run = gbp.run_gbp(state.clone(), graph, cfg, n, accel_log=log)
+    n_run = len(built)
+    loop = hand_loop(state.clone(), graph, cfg, n)
+    assert [k for k, _ in log] == [12, 16, 20]
+    assert_same_run(run, loop)
+    # 16 collected sweeps (4 chunks of 4) between 4 annealed and 2 leftover
+    # ones; the CPU's plain telemetry reads no tables
+    if fused:
+        assert n_run == 4 + 4 * (1 + 4) + 2
+        assert len(built) - n_run == 4 + 16 * 2 + 2
+    else:
+        assert n_run == 16 and len(built) - n_run == 16
+
+
 def test_reprojection_error_is_nan_without_valid_edges(synthetic):
     cfg = GBPConfig(accel_every=0)
     graph = fg.build_graph(synthetic, cfg, "cpu")

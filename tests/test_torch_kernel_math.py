@@ -6,7 +6,7 @@ fused sweep kernel (H1, ``edge_math_tables``) and of the unfused one (H4,
 ``TileColumn``; csrc/table.cuh the per-variable row of the table build
 (H2), csrc/gather.cuh that of the gather (H5), csrc/reduce.cuh the run sum
 and chunk combine of H3's two-pass sum, csrc/diag.cuh the per-edge terms
-and both passes of the telemetry sums (H6), as plain ``__device__``
+and the one launch of the telemetry sums (H6), as plain ``__device__``
 functions on scalars. With a
 small header that defines the few CUDA names they use, g++ compiles them
 for the CPU; these tests run each body edge by edge (the loop the kernel's
@@ -20,6 +20,7 @@ every discrete output must be equal.
 
 import ctypes
 import dataclasses
+import functools
 import shutil
 import subprocess
 
@@ -195,34 +196,55 @@ extern "C" void host_gather(const float* src, long long n_var, int comp,
   for (long long e = 0; e < n; ++e)
     gather_edge(src, n_var, comp, idx[e], out, n, e);
 }
-// H6's two passes: per block, each thread's edges (diag_thread_edges) and
-// the block's tree (diag_tree_level), one partial per block; then pass 2's
-// threads over the partials, its tree and diag_finish. The threads of a
-// tree level run one after another here, in parallel on the card: each
-// level's adds are independent.
-static void host_tree(double* sums) {
-  for (int h = DIAG_THREADS / 2; h > 0; h >>= 1)
-    for (int t = 0; t < h; ++t) diag_tree_level(sums, h, t);
+// H6's one launch (csrc/diag.cu diag_sums). A block: each thread's edges
+// (diag_thread_edges), each warp's lanes by the tree of the kernel's
+// shuffles (lane_tree), then its warps in order (diag_fold_warps). The
+// blocks run in the completion order ``order``; each writes its partial
+// and draws a ticket as atomicInc(ticket, blocks - 1) does, and the one
+// that draws the last adds the partials by the same trees
+// (diag_thread_partials, diag_finish) into ``out``. Returns how many
+// blocks did that.
+// __shfl_down_sync hands lane l the value lane l + h held before the
+// step; lanes < h here read lanes >= h before any of those is written.
+static void lane_tree(double (*l)[DIAG_SUMS]) {
+  for (int h = 16; h > 0; h >>= 1)
+    for (int i = 0; i < h; ++i)
+      for (int k = 0; k < DIAG_SUMS; ++k) l[i][k] = l[i][k] + l[i + h][k];
 }
-extern "C" void host_diag(const DiagArgs* a, double* partial, double* out) {
+static void host_block(double (*lanes)[DIAG_SUMS], double out[DIAG_SUMS]) {
+  double warp[DIAG_WARPS][DIAG_SUMS];
+  for (int w = 0; w < DIAG_WARPS; ++w) {
+    lane_tree(lanes + 32 * w);
+    for (int k = 0; k < DIAG_SUMS; ++k) warp[w][k] = lanes[32 * w][k];
+  }
+  diag_fold_warps(warp, out);
+}
+extern "C" long long host_diag_blocks(long long n_edges) {
+  return diag_blocks(n_edges);
+}
+extern "C" int host_diag(const DiagArgs* a, const long long* order,
+                         double* partial, unsigned* ticket, double* out) {
   const long long blocks = diag_blocks(a->n_edges);
-  std::vector<double> sums(DIAG_SUMS * DIAG_THREADS);
-  double acc[DIAG_SUMS];
-  for (long long b = 0; b < blocks; ++b) {
-    for (int t = 0; t < DIAG_THREADS; ++t) {
-      diag_thread_edges(*a, b, t, acc);
-      for (int k = 0; k < DIAG_SUMS; ++k) sums[k * DIAG_THREADS + t] = acc[k];
-    }
-    host_tree(sums.data());
-    for (int k = 0; k < DIAG_SUMS; ++k)
-      partial[k * blocks + b] = sums[k * DIAG_THREADS];
+  std::vector<double> acc((size_t)DIAG_THREADS * DIAG_SUMS);
+  double (*lanes)[DIAG_SUMS] = (double (*)[DIAG_SUMS])acc.data();
+  double sums[DIAG_SUMS];
+  int folds = 0;
+  for (long long i = 0; i < blocks; ++i) {
+    const long long b = order[i];
+    for (int t = 0; t < DIAG_THREADS; ++t)
+      diag_thread_edges(*a, b, t, lanes[t]);
+    host_block(lanes, sums);
+    for (int k = 0; k < DIAG_SUMS; ++k) partial[k * blocks + b] = sums[k];
+    const unsigned drawn = *ticket, top = (unsigned)(blocks - 1);
+    *ticket = drawn >= top ? 0u : drawn + 1;
+    if (drawn != top) continue;
+    ++folds;
+    for (int t = 0; t < DIAG_THREADS; ++t)
+      diag_thread_partials((const double*)partial, blocks, t, lanes[t]);
+    host_block(lanes, sums);
+    diag_finish(sums, out);
   }
-  for (int t = 0; t < DIAG_THREADS; ++t) {
-    diag_thread_partials(partial, blocks, t, acc);
-    for (int k = 0; k < DIAG_SUMS; ++k) sums[k * DIAG_THREADS + t] = acc[k];
-  }
-  host_tree(sums.data());
-  diag_finish(sums.data(), out);
+  return folds;
 }
 // planes.cuh's project on plane inputs: cam [6, n], lmk [3, n], intr
 // [3, n] or null; uv [2, n] and y_cf [3, n] out.
@@ -268,11 +290,14 @@ def host_lib(tmp_path_factory):
     lib.host_gather.argtypes = [p, ll, i, p, p, ll]
     lib.host_reduce_chunks.argtypes = [p, ll, i, p, p, p, p, p, i, i, i, i,
                                        i, p, p]
-    lib.host_diag.argtypes = [p, p, p]
+    lib.host_diag.argtypes = [p] * 5
+    lib.host_diag.restype = i
+    lib.host_diag_blocks.argtypes = [ll]
+    lib.host_diag_blocks.restype = ll
     lib.host_project.argtypes = [p, p, p, p, p, p, ll]
     for fn in (lib.host_sweep, lib.host_sweep_planes, lib.host_sweep_tiled,
                lib.host_sweep_planes_tiled, lib.host_table, lib.host_gather,
-               lib.host_reduce_chunks, lib.host_diag, lib.host_project):
+               lib.host_reduce_chunks, lib.host_project):
         fn.restype = None
     return lib
 
@@ -676,11 +701,13 @@ def test_host_built_projection_matches_plain(host_lib, snavely):
         assert bool(((got - want).abs() <= RTOL * (1 + want.abs())).all())
 
 
+@functools.lru_cache(maxsize=None)
 def _diag_state(name, pad):
     """A warmed state one sweep past the first relinearisations, with
     singular beliefs: two landmarks' Lambda zeroed (their means overflow)
     and one camera's eta NaN (``_warm_state``'s padding edges stay); the
-    Huber flag set on every fifth edge (no residual here reaches it)."""
+    Huber flag set on every fifth edge (no residual here reaches it).
+    Shared by the cases that read it; none writes it."""
     cfg, graph, state = _warm_state(name, pad)
     state = gbp.gbp_sweep(state, graph, cfg).clone()
     state.robust[::5] = True
@@ -690,20 +717,56 @@ def _diag_state(name, pad):
     return cfg, graph, state
 
 
+def _block_order(order, blocks):
+    """The order in which the host-built launch's blocks finish."""
+    if order == "in order":
+        return np.arange(blocks)
+    if order == "reversed":
+        return np.arange(blocks)[::-1].copy()
+    return np.random.default_rng(9).permutation(blocks)
+
+
+def _host_diag(host_lib, args, order):
+    """The host build of H6's launch on ``args`` with its blocks finishing
+    in ``order``: (out, partials [5, blocks]); exactly one block adds the
+    partials, and the ticket is 0 again after the launch."""
+    blocks = host_lib.host_diag_blocks(args.n_edges)
+    seq = torch.tensor(_block_order(order, blocks), dtype=torch.int64)
+    partial = torch.full((5, blocks), float("nan"), dtype=torch.float64)
+    ticket = torch.zeros(1, dtype=torch.int32)
+    out = torch.full((5,), float("nan"), dtype=torch.float64)
+    folds = host_lib.host_diag(ctypes.addressof(args), seq.data_ptr(),
+                               partial.data_ptr(), ticket.data_ptr(),
+                               out.data_ptr())
+    assert folds == 1 and int(ticket) == 0
+    return out, partial
+
+
+def _assert_diag_close(out, ref):
+    """Counts equal; the float sums within RTOL of the sum of |terms| (the
+    sums themselves: the terms are >= 0; the host's sinf/cosf)."""
+    counts = [diag_kernel.SUMS.index(c)
+              for c in ("n_active", "n_relins", "n_robust")]
+    assert torch.equal(out[counts], ref[counts])
+    assert bool((out[1:3] - ref[1:3]).abs().le(RTOL * ref[1:3]).all())
+
+
+@pytest.mark.parametrize("order", ["in order", "reversed", "shuffled"])
 @pytest.mark.parametrize("name,pad", [("pinhole", None), ("snavely", None),
                                       ("large", None), ("large odd", 1)])
 @pytest.mark.parametrize("masked", [False, True], ids=["all", "bad"])
-def test_host_built_diag_matches_plain(host_lib, name, pad, masked):
-    """H6's per-edge body and both passes (csrc/diag.cuh: ``diag_edge``,
-    ``diag_thread_edges``, ``diag_tree_level``, ``diag_thread_partials``,
-    ``diag_finish``) on the plain belief tables against
-    ``edge_sums_reference``, on states with singular beliefs, padding
-    edges (odd and unpadded for "large odd"), several pass-1 blocks for
+def test_host_built_diag_matches_plain(host_lib, name, pad, masked, order):
+    """H6's launch (csrc/diag.cuh: ``diag_edge``, ``diag_thread_edges``,
+    ``diag_fold_warps``, ``diag_thread_partials``, ``diag_finish``, with
+    the kernel's lane tree and ticket mirrored) on the plain belief tables
+    against ``edge_sums_reference``, on states with singular beliefs,
+    padding edges (odd and unpadded for "large odd"), several blocks for
     the large ones and, ``bad``, a tenth of the edges marked bad: the
     counts equal (the tables' validity flags exclude exactly the edges
     whose unsanitised means give a non-finite norm), the float sums within
-    1e-4 of the sum of |terms| (the host's sinf/cosf), the same bits on a
-    rerun."""
+    1e-4 of the sum of |terms| (the host's sinf/cosf); the blocks
+    finishing in ``order`` give the same bits as in order, and a rerun
+    repeats them."""
     cfg, graph, state = _diag_state(name, pad)
     e = graph.n_edges
     if pad == 1:
@@ -716,29 +779,54 @@ def test_host_built_diag_matches_plain(host_lib, name, pad, masked):
     tables = table_kernel.build_tables(state.cam_bel, state.lmk_bel)
     args = diag_kernel.diag_args(state, graph, tables,
                                  cfg.num_undamped_iters, bad)
-    blocks = -(-e // 2048)
+    blocks = host_lib.host_diag_blocks(e)
+    assert blocks == -(-e // 1024)
     if name.startswith("large"):
         assert blocks > 1
 
-    def host():
-        partial = torch.empty((5, blocks), dtype=torch.float64)
-        out = torch.empty(5, dtype=torch.float64)
-        host_lib.host_diag(ctypes.addressof(args), partial.data_ptr(),
-                           out.data_ptr())
-        return out, partial
-
-    out, partial = host()
+    out, partial = _host_diag(host_lib, args, order)
     ref = diag_kernel.edge_sums(state, graph, cfg.num_undamped_iters, bad)
-    counts = [diag_kernel.SUMS.index(c)
-              for c in ("n_active", "n_relins", "n_robust")]
-    assert torch.equal(out[counts], ref[counts])
-    assert bool((out[1:3] - ref[1:3]).abs().le(RTOL * ref[1:3]).all())
+    _assert_diag_close(out, ref)
     # the singular beliefs and the mask took edges out; sweeps relinearised
     live = (state.active > 0) & (True if bad is None else ~bad)
     assert 0 < ref[0] < int(live.sum())
     assert ref[3] > 0 and ref[4] > 0
-    # pass 2 adds the blocks' partials; a rerun repeats every bit
+    # the last block adds every block's partial; the order the blocks
+    # finish in changes no bit, nor does a rerun
     np.testing.assert_allclose(
         partial.sum(1).numpy() * [1, 1, 0.5, 1, 1], out.numpy(), rtol=1e-12)
-    again, _ = host()
-    assert torch.equal(again, out)
+    assert torch.equal(_host_diag(host_lib, args, "in order")[0], out)
+    assert torch.equal(_host_diag(host_lib, args, order)[0], out)
+
+
+@pytest.mark.parametrize("n", [0, 1, 1023, 1024, 1025])
+def test_host_built_diag_edge_counts(host_lib, n):
+    """H6's launch on the first ``n`` edges of the large state: no edges
+    (one block with none, which writes zeros), one, one block of 1,024 and
+    one edge either side of it (the lanes past the last edge add nothing);
+    against the plain version on the same edges, with the blocks in order
+    and reversed to the same bits."""
+    from types import SimpleNamespace
+
+    cfg, graph, state = _diag_state("large", None)
+    assert graph.n_edges > 1025
+    sub_graph = SimpleNamespace(
+        k=graph.k, n_edges=n, intr=None, meas=graph.meas[:, :n].contiguous(),
+        cam_idx=graph.cam_idx[:n], lmk_idx=graph.lmk_idx[:n])
+    sub_state = SimpleNamespace(
+        cam_bel=state.cam_bel, lmk_bel=state.lmk_bel,
+        active=state.active[:n], damping_count=state.damping_count[:n],
+        robust=state.robust[:n])
+    tables = table_kernel.build_tables(state.cam_bel, state.lmk_bel)
+    args = diag_kernel.diag_args(sub_state, sub_graph, tables,
+                                 cfg.num_undamped_iters)
+    assert host_lib.host_diag_blocks(n) == max(1, -(-n // 1024))
+    out, _ = _host_diag(host_lib, args, "in order")
+    ref = diag_kernel.edge_sums_reference(sub_state, sub_graph,
+                                          cfg.num_undamped_iters)
+    _assert_diag_close(out, ref)
+    if n == 0:
+        assert not bool(out.any())
+    elif n > 1:
+        assert ref[0] > 0
+    assert torch.equal(_host_diag(host_lib, args, "reversed")[0], out)
