@@ -69,7 +69,10 @@ the final ``ok`` line:
      whose lines the resumed ones must equal; launch counts per run;
   11. the driver's polish (15 warm-started LM/Schur iterations) at the
      Venice shape from the means phase 6 left: per-iteration cost and
-     decision, ms per LM iteration, peak device memory;
+     decision, ms per LM iteration, peak device memory; then the
+     preconditioner's census along it (ROADMAP C3: the non-finite inverses
+     of S's diagonal blocks per iteration, by cholesky_ex and by the
+     unrolled inv6x6, on the card and on a CPU copy);
   12. incremental SLAM at the TUM fr1desk shape (synthetic_problem_large(
      62, 1900, 7): 13,300 edges, 13,312 padded) with the slam driver's
      config (relinearise every sweep, the one-sided depth guard, the
@@ -119,7 +122,26 @@ the final ``ok`` line:
      same trajectory. Every rank reports its launch counts, and every rank
      must have launched H1-H3 and H6 on the card (H4 and H5 too in (b)).
      The times of (b) and (c) come from two ranks contending for one card:
-     they are not scaling numbers.
+     they are not scaling numbers;
+  15. the tools around the solver (``[tools]`` lines; entry.py, tools/):
+     (a) ``entry()`` on the card, its sweep against kernels="reference"
+     (edge fields to the bit, beliefs within H3's bound), and
+     ``dryrun_multichip(2)`` (two gloo ranks on the card); (b)
+     ``validate_scale``'s protocol at the Ladybug shape (500 sweeps of
+     GBPConfig(), the 15-iteration polish and the cold LM: polished/GN
+     cost within 1e-4 of 1, ATE(polished, GN) below 1 mm; the polish's
+     C3 census), then at the Venice shape, or, past 600 s into the
+     script, its polish-vs-GN half on phase 6's means; (c)
+     ``memory_ledger`` (per field tallies, peak device memory per stage)
+     at the Venice shape with the ba driver's config, then at BAL
+     Final-13682's 28,987,644 observations (pk past 2^31 elements): 50
+     sweeps with diagnostics, a coarse step and 3 polish iterations, the
+     first sweep's last 1M edges against the plain sweep, the error
+     falling, beside the host oracle at the generated means (halved
+     until a point runs; at least one point past 2^31 elements must);
+     (d) ``profile_sweep`` at the Ladybug shape, fused with and without
+     diagnostics and unfused: each kernel's device time inside
+     ``run_gbp`` beside its events' time alone (ROADMAP B5, B6).
 
 The last lines are one JSON object of per-kernel results (launches on
 the main paths, largest difference from the plain version, kernel, plain
@@ -203,6 +225,22 @@ SHARD_AGREE_PX = 0.005     # (b): its final error against phase 9's
 SHARD_SLAM_IBK = 50
 SHARD_TIMED = 20           # (a), (b): all-reduces timed
 SHARD_TIMED_SWEEPS = 50    # (a): sweeps timed per reading
+
+# the tools (phase 15; gbp_poplar_tpu_torch/tools)
+TOOLS_SWEEPS = 500         # (b): validate_scale's GBP solve (the JAX script's)
+POLISH_RATIO_TOL = 1e-4    # (b): polished/GN MAP cost ratio within this of 1
+POLISH_ATE_M = 1e-3        # (b): ATE(polished, GN) below this (m)
+TOOLS_VENICE_BY_S = 600    # (b): the whole protocol at Venice only if the
+                           # script reaches it within this many seconds
+# (c): BAL Final-13682's 28,987,644 observations at Ladybug's 7 a landmark
+# (so 4,141,092 landmarks, fewer than the file's 4,456,117 points): pk
+# [109, E] passes 2^31 elements from about 19.7M edges
+CAPACITY_SHAPE = (13682, 4141092, 7)
+CAPACITY_SWEEPS = 50
+CAPACITY_POLISH = 3
+CAPACITY_SLICE = 1 << 20   # the first sweep's last edges held against plain
+ORACLE_RTOL = 1e-3         # the error after initialise, card vs float64 host
+PROFILE_SWEEPS = 50        # (d): sweeps traced per profile
 
 # The card's peaks (H100 SXM, NVIDIA's data sheet): HBM3 bytes/s and
 # float32 operations/s outside the tensor cores. A kernel's bound is the
@@ -826,12 +864,14 @@ def driver_phase(raw, dev, reset_counts, read_counts, card, work):
 def lm_phase(prob, means, cfg, dev, reset_counts, read_counts, card):
     """Phase 11: the driver's polish (15 warm-started LM/Schur iterations,
     ``ba._polish_problem``) at the Venice shape, from the means the Venice
-    main path left. Returns the launch counts."""
+    main path left, then the preconditioner's census along it (ROADMAP
+    C3). Returns the launch counts of the polish."""
     import numpy as np
     import torch
 
     from gbp_poplar_tpu_torch.core import gauss_newton as gn
     from gbp_poplar_tpu_torch.drivers import ba
+    from gbp_poplar_tpu_torch.tools import validate_scale as vs
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -867,7 +907,24 @@ def lm_phase(prob, means, cfg, dev, reset_counts, read_counts, card):
     check(costs[0] <= cost0 and bool(np.all(np.diff(costs) <= 0)),
           "LM: the cost rose")
     check(launches["reduce"] > 0, "LM did not go through H3")
+    census_line("Venice", vs.precond_census(cam0, lmk0, graph1, pri, cfg,
+                                            POLISH_ITERS), acc)
     return launches
+
+
+def census_line(label, cen, polish_accepted) -> None:
+    """Print ROADMAP C3's census of one polish (validate_scale.
+    precond_census): the non-finite inverses of S's diagonal blocks per
+    LM iteration, by the LM's cholesky_ex and by the unrolled inv6x6, on
+    the card and on a CPU copy of the same blocks."""
+    print(f"[lm] C3 census at the {label} shape, {cen['blocks']} blocks an "
+          f"iteration over {len(cen['accepted'])} polish iterations: "
+          f"non-finite inverses by cholesky_ex on the card "
+          f"{cen['cholesky_ex_device']}, on the host {cen['cholesky_ex_cpu']};"
+          f" by inv6x6 on the card {cen['unrolled_device']}, on the host "
+          f"{cen['unrolled_cpu']}; accept decisions {cen['accepted']}")
+    check(cen["accepted"] == [bool(a) for a in polish_accepted],
+          f"C3 census at {label}: not the polish's trajectory")
 
 
 def slam_phase(dev, reset_counts, read_counts, card, compare_sweeps):
@@ -1877,6 +1934,221 @@ def shard_phase(dev, card, coarse_err, slam_e_err):
     return launches
 
 
+def kernel_of(name: str) -> str | None:
+    """The wrapper key (``kernel_wrappers``) of a traced kernel's name."""
+    for key, part in (("sweep_planes", "sweep_planes_kernel"),
+                      ("sweep", "sweep_kernel"), ("table", "table_kernel"),
+                      ("reduce", "reduce_"), ("gather", "gather_kernel"),
+                      ("diag", "diag_sums")):
+        if part in name:
+            return key
+    return None
+
+
+def tools_phase(dev, card, prob_v, venice_means, t_script, ev, h6_alone,
+                reset_counts, read_counts):
+    """Phase 15: the tools around the solver (``[tools]`` lines). (a)
+    ``entry()``'s sweep on the card against ``kernels="reference"``, and
+    ``dryrun_multichip(2)``; (b) ``validate_scale`` at the Ladybug shape
+    (and the Venice shape, or its polish-vs-GN half on phase 6's means);
+    (c) ``memory_ledger`` at the Venice shape and at BAL Final-13682's
+    observation count (halved until a point runs); (d) ``profile_sweep``
+    at the Ladybug shape. ``ev``: phase 3's events ms of H1 and H3;
+    ``h6_alone``: phase 3's H6 device ms. Returns the launch counts."""
+    import numpy as np
+    import torch
+
+    from gbp_poplar_tpu_torch import entry as entry_mod
+    from gbp_poplar_tpu_torch.config import GBPConfig
+    from gbp_poplar_tpu_torch.core import build_graph, gbp, init_state
+    from gbp_poplar_tpu_torch.core.factor_graph import (MSG_CAM_ROWS,
+                                                        MSG_LMK_ROWS)
+    from gbp_poplar_tpu_torch.ops import reduce_kernel
+    from gbp_poplar_tpu_torch.tools import memory_ledger as ml
+    from gbp_poplar_tpu_torch.tools import profile_sweep as ps
+    from gbp_poplar_tpu_torch.tools import validate_scale as vs
+    from gbp_poplar_tpu_torch.utils import balio, evaluation
+
+    t_phase = time.perf_counter()
+    reset_counts()
+    # (a) entry(): its sweep against the plain versions on the same state
+    fn, (state, graph) = entry_mod.entry()
+    check(state.pk.device == dev, "entry() did not run on cuda:0")
+    sk, sr = state.clone(), state.clone()
+    fn(sk, graph)
+    gbp.gbp_sweep(sr, graph, GBPConfig(kernels="reference"))
+    edge_same = all(torch.equal(getattr(sk, f), getattr(sr, f))
+                    for f in ("pk", "damping_count", "robust"))
+    bel_same = all(torch.equal(getattr(sk, f), getattr(sr, f))
+                   for f in ("cam_bel", "lmk_bel"))
+    bel_rel = 0.0
+    for bel, rows, seg, prior in (
+            ("cam_bel", MSG_CAM_ROWS, graph.cam_seg, sr.cam_prior),
+            ("lmk_bel", MSG_LMK_ROWS, graph.lmk_seg, sr.lmk_prior)):
+        scale = reduce_kernel.segment_sum(
+            sr.pk[rows[0]:rows[1]].abs(), seg, prior.abs(), reference=True)
+        diff = (getattr(sk, bel) - getattr(sr, bel)).abs()
+        bel_rel = max(bel_rel, float((diff / (scale + 1e-30)).max()))
+    print(f"[tools] (a) entry() on {state.pk.device}: {graph.n_edges} padded "
+          f"edges; its sweep against kernels=\"reference\": edge fields "
+          f"bit-identical {edge_same}, beliefs bit-identical {bel_same} "
+          f"(largest difference {bel_rel:.3e} of the sum of |terms|, H3's "
+          f"bound {REDUCE_RTOL})")
+    check(edge_same and bel_rel <= REDUCE_RTOL,
+          "entry(): the sweep differs from its plain version")
+    del fn, state, graph, sk, sr
+    t0 = time.perf_counter()
+    ranks = entry_mod.dryrun_multichip(2)
+    print(f"[tools] (a) dryrun_multichip(2) in {time.perf_counter() - t0:.1f}"
+          f" s: " + "; ".join(f"rank {r} {res}"
+                              for r, res in enumerate(ranks)))
+    check(len(ranks) == 2 and all(r["device"].startswith(dev.type)
+                                  for r in ranks), "dry run: not on the card")
+
+    # (b) validate_scale: the JAX script's protocol
+    r = vs.validate(balio.synthetic_problem_large(*LADYBUG_SHAPE),
+                    TOOLS_SWEEPS, device=dev)
+    for line in vs.report(r):
+        print(f"[tools] (b) Ladybug: {line}")
+    census_line("Ladybug", r["census"], r["polish_accepted"])
+    vals = [r[k] for k in ("gbp_err", "polish_err", "gn_err", "gbp_cost",
+                           "polish_cost", "gn_cost", "ate_gbp")]
+    check(bool(np.isfinite(vals).all())
+          and abs(r["ratio_polish"] - 1.0) <= POLISH_RATIO_TOL
+          and r["ate_polish"] < POLISH_ATE_M,
+          "validate_scale at Ladybug: the polish did not reach the GN "
+          "optimum")
+    elapsed = time.perf_counter() - t_script
+    if elapsed < TOOLS_VENICE_BY_S:
+        rv = vs.validate(balio.synthetic_problem_large(*VENICE_SHAPE),
+                         TOOLS_SWEEPS, device=dev, census=False)
+        what = "Venice"
+    else:
+        rv = vs.compare_to_gn(prob_v, *venice_means, device=dev,
+                              census=False)
+        what = (f"Venice, polish vs GN on phase 6's means (the script was "
+                f"{elapsed:.0f} s in)")
+    for line in vs.report(rv):
+        print(f"[tools] (b) {what}: {line}")
+    check(bool(np.isfinite([rv[k] for k in ("polish_err", "gn_err",
+                                            "polish_cost", "gn_cost")]).all()),
+          "validate_scale at Venice: non-finite result")
+
+    # (c) memory_ledger at the Venice shape, then at BAL Final-13682's size
+    torch.cuda.empty_cache()
+    print(f"[tools] (c) device memory held before the ledgers "
+          f"{torch.cuda.memory_allocated() / 2**30:.3f} GiB")
+    rl = ml.ledger(VENICE_SHAPE, production=True, device=dev)
+    for line in ml.report(rl):
+        print(f"[tools] (c) Venice: {line}")
+    check(not rl["oom"], "memory_ledger: the Venice shape ran out of memory")
+    shape = CAPACITY_SHAPE
+    while True:
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        prob = balio.synthetic_problem_large(*shape)
+        t_gen = time.perf_counter() - t0
+        # the host oracle at the generated means: the generator's own
+        # consistency (0.63 px at the Ladybug shape)
+        gen_err = evaluation.numpy_reprojection_error(
+            prob.cam_means, prob.lmk_means, prob)[0]
+        print(f"[tools] (c) capacity: synthetic_problem_large{shape} "
+              f"generated in {t_gen:.1f} s; host oracle at the generated "
+              f"means {gen_err:.4f} px")
+        rl = ml.ledger(shape, production=True, n_sweeps=CAPACITY_SWEEPS,
+                       iter_offset=0, polish_iters=CAPACITY_POLISH,
+                       slice_edges=CAPACITY_SLICE, device=dev, problem=prob,
+                       oracle=True)
+        del prob
+        for line in ml.report(rl):
+            print(f"[tools] (c) capacity: {line}")
+        if not rl["oom"] or shape[1] < 1000:
+            break
+        print(f"[tools] (c) {rl['edges']} edges ran out of memory at stage "
+              f"{rl['oom']['stage']}; halving the edges")
+        shape = (max(shape[0] // 2, 2 * shape[2]), shape[1] // 2, shape[2])
+    check(not rl["oom"], "memory_ledger: no point ran")
+    check(rl["pk_elements"] >= 2**31,
+          f"memory_ledger: no point with pk past 2^31 elements ran (largest "
+          f"{rl['pk_elements']} elements)")
+    check(rl["slice"]["ok"], "memory_ledger: the first sweep's last edges "
+          "differ from the plain sweep")
+    errs = np.asarray(rl["errs"])
+    # H2's means and H6's sums past 2^31 elements of pk, against float64 on
+    # the host at the same means
+    gap = (abs(rl["err_initialise"] - rl["oracle_initialise"])
+           / rl["oracle_initialise"])
+    print(f"[tools] (c) capacity: card against host oracle at the belief "
+          f"means after initialise: relative difference {gap:.2e} (bound "
+          f"{ORACLE_RTOL})")
+    check(gap <= ORACLE_RTOL, "memory_ledger: the card's error after "
+          "initialise differs from the host oracle's")
+    check(bool(np.isfinite(errs).all()) and errs[-1] < rl["err_initialise"],
+          "memory_ledger: the error did not fall")
+
+    # (d) profile_sweep at the Ladybug shape: fused with and without
+    # diagnostics, unfused without
+    prob = balio.synthetic_problem_large(*LADYBUG_SHAPE)
+    cfg = GBPConfig(accel_every=0)
+    graph = build_graph(prob, cfg, dev)
+    per = {}
+    for label, fused, diags in (("fused", True, False),
+                                ("fused with diagnostics", True, True),
+                                ("unfused", False, False)):
+        c = GBPConfig(accel_every=0, fused=fused)
+        state = gbp.initialise(init_state(prob, c, dev), graph, c)
+        rp = ps.profile_run(state, graph, c, PROFILE_SWEEPS, diags)
+        for line in ps.report(rp):
+            print(f"[tools] (d) Ladybug, {label}: {line}")
+        sums = {}
+        for name, us, _, n in rp["kernels"]:
+            key = kernel_of(name)
+            if key is not None:
+                a, b = sums.get(key, (0.0, 0.0))
+                sums[key] = (a + us, b + n)
+        per[label] = sums
+        print(f"[tools] (d) Ladybug, {label}: per sweep inside run_gbp "
+              f"(profiler) " + ", ".join(
+                  f"{k} {us:.1f} us in {n:.2f} launches"
+                  for k, (us, n) in sums.items())
+              + f"; device busy {rp['busy']:.1%} ({card})")
+        check("sweep" in sums or "sweep_planes" in sums,
+              "profile_sweep: no sweep kernel in the trace")
+    launches = read_counts()
+    # H5 by events on the same state, beside its time inside run_gbp
+    h5_ev = cuda_ms(lambda: (reduce_kernel.gather(state.cam_bel,
+                                                  graph.cam_idx),
+                             reduce_kernel.gather(state.lmk_bel,
+                                                  graph.lmk_idx)),
+                    TIMED_SWEEPS)
+    f, d, u = (per[k] for k in ("fused", "fused with diagnostics",
+                                "unfused"))
+
+    def ms(side, key, launches=1):
+        """ms of ``launches`` launches of a kernel, from its mean launch in
+        the trace (the per-sweep sum would miss any launch the trace
+        dropped)."""
+        us, n = side[key]
+        return us / n * launches / 1e3
+
+    # a belief update is 3 launches of H3 at this shape (the cameras'
+    # two passes, the landmarks' one), a sweep's gathers 2 of H5
+    print(f"[tools] (d) B5, the Ladybug shape: H1 inside run_gbp "
+          f"{ms(f, 'sweep'):.4f} ms a launch (profiler) against "
+          f"{ev['sweep']:.4f} by events alone (phase 3); H3 "
+          f"{ms(f, 'reduce', 3):.4f} ms a belief update against "
+          f"{ev['reduce']:.4f}; H5 {ms(u, 'gather', 2):.4f} ms a sweep "
+          f"(both kinds) against {h5_ev:.4f} by events here; H4 "
+          f"{ms(u, 'sweep_planes'):.4f} ms ({card})")
+    print(f"[tools] (d) B6: H6 inside a sweep {ms(d, 'diag'):.4f} ms a "
+          f"launch (profiler) against {h6_alone:.4f} alone (phase 3); H2 "
+          f"{ms(d, 'table'):.4f} ms a launch with diagnostics, "
+          f"{ms(f, 'table'):.4f} without ({card})")
+    print(f"[tools] launches in phase 15 (rank 0): {launches}; phase 15 in "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -1893,6 +2165,7 @@ def main() -> int:
     from gbp_poplar_tpu_torch.ops import sweep_kernel, table_kernel
     from gbp_poplar_tpu_torch.utils import analysis, balio, priors
 
+    t_script = time.perf_counter()
     dev = torch.device("cuda", 0)
     name = torch.cuda.get_device_name(0)
     card = smi_line()
@@ -2498,6 +2771,9 @@ def main() -> int:
     work.cleanup()
     torch.cuda.empty_cache()
     launches_x = shard_phase(dev, card, coarse_err, slam_e_err)
+    launches_t = tools_phase(dev, card, prob_v, venice_means, t_script,
+                             {k: times[k][0] for k in ("sweep", "reduce")},
+                             h6_ms, reset_counts, read_counts)
 
     replaces = {
         "sweep": ("gbp_poplar_tpu_torch/csrc/sweep.cu",
@@ -2516,7 +2792,7 @@ def main() -> int:
     launches = {k: sum(run[k] for run in (launches_l, launches_v, launches_c,
                                           launches_d, launches_lm,
                                           *launches_s, launches_u,
-                                          *launches_x))
+                                          *launches_x, launches_t))
                 for k in replaces}
     check(all(n > 0 for n in launches.values()),
           "a kernel was never launched by the main paths")

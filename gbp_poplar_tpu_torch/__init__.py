@@ -22,8 +22,13 @@ linearisation and transforms (``ops.projection.linearise_factor``,
 (``utils.analysis``), edge dumps (``utils.debug``), the native BAL
 parser (``native/balio.cpp``), and sharding over the ranks of a
 ``torch.distributed`` group (``parallel``: the edge-sharded solve and
-map-partitioned SLAM, the drivers' ``--devices N``). Not yet: the
-benchmark scripts. ROADMAP.md lists what remains.
+map-partitioned SLAM, the drivers' ``--devices N``); the entry points of
+the JAX package's ``__graft_entry__.py`` (``entry``: one sweep on a tiny
+problem, ``dryrun_multichip``) and its sequence-free scripts (``tools``:
+``validate_scale``, ``memory_ledger``, ``profile_sweep``, each run as
+``python -m gbp_poplar_tpu_torch.tools.<name>``, on the CPU with
+``GBP_PLATFORM=cpu``). Not yet: a benchmark. ROADMAP.md lists what
+remains.
 """
 
 import torch

@@ -77,7 +77,8 @@ class _NormalEqs(NamedTuple):
     w18: torch.Tensor        # [18, E] cross blocks W (6x3 row-major)
     b_c: torch.Tensor        # [C, 6]
     b_l3: torch.Tensor       # [3, L]
-    s_diag_inv: torch.Tensor  # [C, 6, 6]
+    s_diag: torch.Tensor     # [C, 6, 6] exact block diagonal of S
+    s_diag_inv: torch.Tensor  # [C, 6, 6] its inverse, the preconditioner
 
 
 def _sum(rows, seg, ref: bool) -> torch.Tensor:
@@ -142,7 +143,19 @@ def _build_planes(camT, lmkT, graph: GBPGraph, priors: GNPriors,
     t = pl.matmul(w_m, mv)
     wmw = [pl.vdot(t[i], w_m[j]) for (i, j) in pl.SYM6_IDX]
     s_diag = a_c - pl.unpack_sym_dense(_sum(wmw, graph.cam_seg, ref), 6)
-    return _NormalEqs(a_c, m_inv6, w18, b_c, b_l3, inv6x6_cholesky_ex(s_diag))
+    return _NormalEqs(a_c, m_inv6, w18, b_c, b_l3, s_diag,
+                      inv6x6_cholesky_ex(s_diag))
+
+
+def schur_block_diagonal(cam: torch.Tensor, lmk: torch.Tensor,
+                         graph: GBPGraph, priors: GNPriors, cfg: GBPConfig,
+                         lm_lambda: float) -> torch.Tensor:
+    """The damped reduced camera system's exact block diagonal [C, 6, 6]
+    at cam [C, 6], lmk [L, 3] and damping ``lm_lambda``: the blocks whose
+    inverses (``inv6x6_cholesky_ex``) precondition ``solve_lm``'s CG."""
+    lam = torch.tensor(lm_lambda, dtype=cam.dtype, device=cam.device)
+    return _build_planes(cam.T, lmk.T, graph, priors, cfg.huber_nstds, lam,
+                         cfg.kernels == "reference").s_diag
 
 
 def _wt_v_l3(ne: _NormalEqs, graph: GBPGraph, v: torch.Tensor,

@@ -123,7 +123,11 @@ def inv6x6_cholesky_ex(a: torch.Tensor) -> torch.Tensor:
     equilibration; NaN where the factorisation fails. The LM solver's
     block-Jacobi preconditioner (core/gauss_newton.py) uses it: its accept
     decisions are held against the JAX package's up to the first float32
-    tie, and the unrolled form's rounding moves that tie."""
+    tie, and the unrolled form's rounding moves that tie. On the LM's S
+    blocks it decides definiteness as the unrolled form does, on an H100
+    and on its host alike: no block fails along the Ladybug and Venice
+    polishes, and on near-singular blocks the same blocks fail
+    (tests/test_torch_cuda.py, chip_smoke.py's ``C3 census``)."""
     d = torch.rsqrt(torch.abs(torch.diagonal(a, dim1=-2, dim2=-1)) + 1e-30)
     a_eq = a * d[..., :, None] * d[..., None, :]
     chol, info = torch.linalg.cholesky_ex(a_eq)

@@ -37,6 +37,10 @@ With no mode, h4, h2 and h3:
       first and the last sweep kernel and the kernels with the most device
       time.
 
+The traces of ``driver`` and ``slam`` are read by
+``gbp_poplar_tpu_torch.tools.profile_sweep.busy_share`` (of the tree
+imported: with ``--tree``, a checkout that has that module).
+
 ``--tree DIR`` imports ``gbp_poplar_tpu_torch`` from another checkout
 (a parent commit unpacked with ``git archive``), so that one call can run
 parent and change in turns. Prints the card's name and power limit first;
@@ -204,35 +208,6 @@ def probe_h3(dev) -> None:
         torch.cuda.empty_cache()
 
 
-def _busy_share(trace: str, kernel: str) -> tuple[float, float, list]:
-    """From a chrome trace of the card's activity: the span (ms) from the
-    first to the last launch of ``kernel``, the share of it in which the
-    device ran a kernel, a copy or a set, and the kernels with the most
-    device time in it [(name, ms, launches)]."""
-    import json
-
-    with open(trace) as f:
-        evs = [e for e in json.load(f)["traceEvents"]
-               if e.get("ph") == "X" and e.get("cat") in
-               ("kernel", "gpu_memcpy", "gpu_memset")]
-    marks = [e for e in evs if kernel in e["name"]]
-    cs.check(bool(marks), f"the trace holds no {kernel} launch")
-    t0 = min(e["ts"] for e in marks)
-    t1 = max(e["ts"] + e["dur"] for e in marks)
-    busy, end, per = 0.0, t0, {}
-    for e in sorted(evs, key=lambda e: e["ts"]):
-        a, b = max(e["ts"], t0), min(e["ts"] + e["dur"], t1)
-        if b <= a:
-            continue
-        busy += max(0.0, b - max(a, end))
-        end = max(end, b)
-        ms, n = per.get(e["name"], (0.0, 0))
-        per[e["name"]] = (ms + (b - a) / 1e3, n + 1)
-    top = sorted(((k[:60], *v) for k, v in per.items()),
-                 key=lambda r: -r[1])[:5]
-    return (t1 - t0) / 1e3, busy / (t1 - t0), top
-
-
 def probe_driver(dev) -> None:
     import contextlib
     import io
@@ -241,6 +216,7 @@ def probe_driver(dev) -> None:
     from torch.profiler import ProfilerActivity, profile
 
     from gbp_poplar_tpu_torch.drivers import ba
+    from gbp_poplar_tpu_torch.tools.profile_sweep import busy_share
     from gbp_poplar_tpu_torch.utils import balio
 
     n_iters = cs.DRIVER_SWEEPS[1]
@@ -262,7 +238,7 @@ def probe_driver(dev) -> None:
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             rate_prof = drive()
         prof.export_chrome_trace(trace)
-        span, share, top = _busy_share(trace, "sweep_kernel")
+        span, share, top = busy_share(trace, "sweep_kernel")
     print(f"[driver] Ladybug shape, {n_iters} sweeps, defaults: steady state "
           f"{rate} sweeps/s; traced run {rate_prof} sweeps/s, device busy "
           f"{share:.1%} of the {span:.1f} ms from the first to the last "
@@ -280,6 +256,7 @@ def probe_slam(dev) -> None:
 
     from gbp_poplar_tpu_torch.core import build_graph, gbp, init_state, slam
     from gbp_poplar_tpu_torch.drivers import slam as slam_driver
+    from gbp_poplar_tpu_torch.tools.profile_sweep import busy_share
     from gbp_poplar_tpu_torch.utils import flags
 
     cfg, _ = slam_driver.config_from_args(
@@ -323,7 +300,7 @@ def probe_slam(dev) -> None:
                 gbp.run_gbp(st, graph, cfg, ibk, with_diagnostics=diags)
                 torch.cuda.synchronize()
             prof.export_chrome_trace(trace)
-            span, share, top = _busy_share(trace, "sweep_kernel")
+            span, share, top = busy_share(trace, "sweep_kernel")
             print(f"[slam] traced segment {'with' if diags else 'without'} "
                   f"diagnostics: device busy {share:.1%} of the {span:.1f} ms "
                   "from the first to the last sweep kernel; most device "

@@ -616,3 +616,49 @@ def test_nccl_one_rank_equals_single_device_on_card(cuda_device):
     assert torch.equal(err, diag.reproj_err.cpu())
     for k, v in fg.state_to_numpy(s).items():
         assert np.array_equal(v, fields[k], equal_nan=True), k
+
+
+def _starved_problem():
+    """synthetic_problem(12 keyframes, 120 points) with every other
+    keyframe's observations cut to its first 2: the data of those cameras'
+    S blocks has rank 4 at most, and weak priors leave the blocks near
+    singular."""
+    import dataclasses
+
+    p = balio.synthetic_problem(n_keyframes=12, n_points=120, seed=1,
+                                pixel_noise=0.5)
+    cam = np.asarray(p.cam_idx)
+    keep = np.ones(len(cam), bool)
+    for c in range(1, p.n_keyframes, 2):
+        keep[np.flatnonzero(cam == c)[2:]] = False
+    return dataclasses.replace(
+        p, n_edges=int(keep.sum()), cam_idx=p.cam_idx[keep],
+        lmk_idx=p.lmk_idx[keep], measurements=p.measurements[keep])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lm_lambda", [1e-6, 1e-9])
+def test_lm_preconditioner_blocks_same_on_card_and_host(cuda_device,
+                                                        lm_lambda):
+    """ROADMAP C3: the LM's block-Jacobi preconditioner inverts S's
+    diagonal blocks with cholesky_ex; on near-singular blocks (a starved
+    problem, priors weakened 1e4 times, little damping) the card and the
+    host find the same non-finite inverses, by cholesky_ex and by the
+    unrolled inv6x6 (the JAX package's algorithm), and the two algorithms
+    the same count."""
+    from gbp_poplar_tpu_torch.core import gauss_newton as gn
+    from gbp_poplar_tpu_torch.ops import linalg
+
+    prob = _starved_problem()
+    cfg = GBPConfig(edge_pad_multiple=1, prior_std_weaker_factor=1e4)
+    graph = fg.build_graph(prob, cfg, cuda_device)
+    pri = gn.problem_priors(prob, cfg, graph)
+    s = gn.schur_block_diagonal(pri.cam_mu, pri.lmk_mu, graph, pri, cfg,
+                                lm_lambda)
+    counts = []
+    for inv in (linalg.inv6x6_cholesky_ex, linalg.inv6x6):
+        card = ~torch.isfinite(inv(s)).flatten(-2).all(-1)
+        host = ~torch.isfinite(inv(s.cpu())).flatten(-2).all(-1)
+        assert torch.equal(card.cpu(), host), inv.__name__
+        counts.append(int(host.sum()))
+    assert counts[0] == counts[1] > 0, counts
