@@ -18,7 +18,8 @@ the final ``ok`` line:
      telemetry sums (H6) on that state, without and with 1,000 edges
      marked bad, and on a copy with singular beliefs; then each kernel's
      time beside its plain version's, its bound (the larger of its bytes
-     over 3.35 TB/s and its operations over 67 TFLOP/s) and, for H3, the
+     over 3.35 TB/s and its operations, tallied by tools/count_edge_ops,
+     over the card's float32 and special-function rates) and, for H3, the
      one library call that computes the same function
      (``torch.index_add``), per variable kind; H2 per kind and both kinds,
      and H6 (one launch a call), by the profiler's device time beside the
@@ -83,7 +84,9 @@ the final ``ok`` line:
      and to each other under the gn flags, and H6 on that state; (c) the
      driver's checkpoint at keyframe 6 resumed with start_kf, its
      diagnostics equal to (a)'s to the bit; (d) all 62
-     keyframes without diagnostics: sweeps/s including insertion, the
+     keyframes without diagnostics by the benchmark's SLAM row
+     (tools/bench.bench_slam, the slam driver's config, after one warm-up
+     segment): sweeps/s including insertion, the
      final error (< 3.0 px) beside the JAX package's, ms/sweep with and
      without diagnostics and H6's host time a call (``[diag]`` line); (e)
      the slam driver in process at 150 sweeps per
@@ -141,7 +144,23 @@ the final ``ok`` line:
      until a point runs; at least one point past 2^31 elements must);
      (d) ``profile_sweep`` at the Ladybug shape, fused with and without
      diagnostics and unfused: each kernel's device time inside
-     ``run_gbp`` beside its events' time alone (ROADMAP B5, B6).
+     ``run_gbp`` beside its events' time alone (ROADMAP B5, B6);
+  16. the measurement tools (``[bench]`` lines; tools/bench.py and the
+     scripts' counterparts): (a) ``tools/bench.main()`` at its full
+     workload on a synthetic BAL file of TUM fr1xyz's size, with the
+     Ladybug and Venice rows and every guard, its JSON line printed under
+     ``[bench]``; (b) the SLAM row, phase 12 (d)'s ``bench_slam``; (c)
+     ``bench_sweep scale`` (the absent sequences skipped by name, the
+     synthetic ladder with its sanity solves) and ``venice
+     --production``; (d) ``bench_ablate`` at the Ladybug shape, ``full``
+     beside (a)'s raw chain; (e) ``count_edge_ops`` on the card, with H1's
+     operations bound at the Ladybug shape below its bytes bound; (f)
+     ``bench_scaling`` in both modes at the cards present (N = 1 on one
+     card) and ``scaling_model`` from (a)'s T1, the payload of one sweep
+     on two gloo CPU ranks and an NCCL all-reduce's cost a call at world
+     size 1 on the card (phase 14 (a)'s timer, ``bench_scaling.
+     all_reduce_ms``). H1-H5
+     must each launch on the card in the phase.
 
 The last lines are one JSON object of per-kernel results (launches on
 the main paths, largest difference from the plain version, kernel, plain
@@ -223,7 +242,7 @@ SHARD_AGREE_PX = 0.005     # (b): its final error against phase 9's
 # keyframe to 50: two ranks sharing an H100 ran 61.0 sweeps/s, so (c)
 # took 164 s at 150 (PERF.md)
 SHARD_SLAM_IBK = 50
-SHARD_TIMED = 20           # (a), (b): all-reduces timed
+SHARD_TIMED = 20           # (b): all-reduces timed
 SHARD_TIMED_SWEEPS = 50    # (a): sweeps timed per reading
 
 # the tools (phase 15; gbp_poplar_tpu_torch/tools)
@@ -242,52 +261,40 @@ CAPACITY_SLICE = 1 << 20   # the first sweep's last edges held against plain
 ORACLE_RTOL = 1e-3         # the error after initialise, card vs float64 host
 PROFILE_SWEEPS = 50        # (d): sweeps traced per profile
 
-# The card's peaks (H100 SXM, NVIDIA's data sheet): HBM3 bytes/s and
-# float32 operations/s outside the tensor cores. A kernel's bound is the
-# larger of its bytes and its operations over these.
+# the measurement tools (phase 16; tools/bench.py and the scripts): the
+# headline on a synthetic BAL file of TUM fr1xyz's size (42 keyframes,
+# 2,194 landmarks, 12,908 observations; here 13,164)
+BENCH_TUM_SHAPE = (42, 2194, 6)
+
+# The card's peak HBM3 bytes/s (H100 SXM, NVIDIA's data sheet). A
+# kernel's bound is the larger of its bytes over this and its operations
+# over the card's rates (tools/count_edge_ops.card_rates: float32 lanes and
+# special-function results per SM per clock, times the card's SMs and
+# maximum clock).
 HBM_BYTES_PER_S = 3.35e12
-FP32_OPS_PER_S = 67e12
-
-# aten operations counted as one float32 operation per output element when
-# the plain versions are run under count_ops (data movement is not counted)
-_COUNTED_OPS = {
-    "add", "sub", "mul", "div", "neg", "sqrt", "rsqrt", "reciprocal",
-    "where", "eq", "ne", "lt", "le", "gt", "ge", "abs", "sin", "cos",
-    "logical_and", "logical_or", "logical_not", "bitwise_and", "bitwise_or",
-    "bitwise_not", "isfinite", "isnan", "isinf", "clamp", "clamp_min",
-    "clamp_max", "minimum", "maximum", "square", "pow", "sum", "prod",
-    "exp", "log", "sign", "sgn", "masked_fill", "lerp",
-}
 
 
-def count_ops(fn) -> int:
-    """Float operations of ``fn()`` (a plain version on its real inputs):
-    the elements written by each counted elementwise aten operation."""
-    from torch.utils._python_dispatch import TorchDispatchMode
+def count_ops(fn) -> tuple[float, float]:
+    """(one-class, transcendental) float operations of ``fn()`` (a plain
+    version on its real inputs): tools/count_edge_ops.tally, the elements
+    each aten operation writes, by class (views, packing and data movement
+    count none)."""
+    from gbp_poplar_tpu_torch.tools import count_edge_ops
 
-    class Count(TorchDispatchMode):
-        n = 0
-
-        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-            out = func(*args, **(kwargs or {}))
-            name = func.overloadpacket.__name__.rstrip("_")
-            if name in _COUNTED_OPS:
-                for t in (out if isinstance(out, (tuple, list)) else (out,)):
-                    if hasattr(t, "numel"):
-                        Count.n += t.numel()
-            return out
-
-    with Count():
-        fn()
-    return Count.n
+    ones, trans = count_edge_ops.tally(fn)
+    return sum(ones.values()), sum(trans.values())
 
 
-def least_ms(n_bytes: float, n_ops: float) -> tuple[float, str]:
+def least_ms(n_bytes: float, n_ops: tuple) -> tuple[float, str]:
     """The least time (ms) the card could take for work that moves
     ``n_bytes`` (each input read once, each output written once) and does
-    ``n_ops`` float32 operations, and which of the two bounds it."""
+    ``n_ops`` = (one-class, transcendental) operations (``count_ops``'s
+    pair), and which of the two bounds it."""
+    from gbp_poplar_tpu_torch.tools import count_edge_ops
+
+    one, trans = n_ops
     t_b = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_o = n_ops / FP32_OPS_PER_S * 1e3
+    t_o = count_edge_ops.ops_ms(one, trans, count_edge_ops.card_rates())
     return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
 
 
@@ -308,13 +315,14 @@ def sweep_bytes(graph, gathered: bool) -> int:
                    + graph.n_points * LMK_WIDTH))
 
 
-def reduce_work(seg, comp: int) -> tuple[int, int]:
-    """(bytes, operations) of one segmented sum with a prior: the listed
-    edges' rows and their index (the permutation, or the CSR offsets of a
-    contiguous kind) read once, the prior read and the sums written."""
+def reduce_work(seg, comp: int) -> tuple[int, tuple[int, int]]:
+    """(bytes, (one-class, transcendental) operations) of one segmented
+    sum with a prior: the listed edges' rows and their index (the
+    permutation, or the CSR offsets of a contiguous kind) read once, the
+    prior read and the sums written; one add an element."""
     n, v = seg.var.shape[0], seg.n_var
     index = 4 * n if seg.perm is not None else 4 * (v + 1)
-    return 4 * comp * n + index + 2 * 4 * comp * v, comp * (n + v)
+    return 4 * comp * n + index + 2 * 4 * comp * v, (comp * (n + v), 0)
 
 
 def time_reduce_sides(state, graph, n_real: int, card: str) -> float:
@@ -1014,6 +1022,7 @@ def _slam_parts(run, tmp, raw, prob, graph, cfg, dev, reset_counts,
     from gbp_poplar_tpu_torch.drivers import slam as slam_driver
     from gbp_poplar_tpu_torch.ops import planes, reduce_kernel, sweep_kernel
     from gbp_poplar_tpu_torch.ops import table_kernel
+    from gbp_poplar_tpu_torch.tools import bench
     from gbp_poplar_tpu_torch.utils import balio, checkpoint, priors
 
     n_sweeps_all = (prob.n_keyframes - 1) * SLAM_IBK
@@ -1124,25 +1133,35 @@ def _slam_parts(run, tmp, raw, prob, graph, cfg, dev, reset_counts,
           "SLAM (c): the resume by keyframe is not bit-exact")
     del res_k, res_r, res_c, state_c
 
-    # (d) the full sequence without diagnostics, insertion included
+    # (d) the full sequence without diagnostics, insertion included: the
+    # benchmark's SLAM row (tools/bench.bench_slam), whose schedule is the
+    # slam driver's config, after its warm-up segment on a throwaway copy
     reset_counts()
-    res_d, log_d, wall_d = run(cfg, None, diags=False)
+    slam_row = bench.bench_slam(prob, SLAM_IBK, dev)
     launches_d = read_counts()
-    err_d = gbp.reprojection_error(res_d.state, graph)[0].item()
-    print(f"[slam] (d) {prob.n_keyframes} keyframes x {SLAM_IBK} sweeps: "
-          f"{wall_d:.2f} s, {n_sweeps_all / wall_d:.1f} sweeps/s incl. "
-          f"insertion; final error {err_d:.6f} px (guard < 3.0; the JAX "
-          f"package at this shape and cadence on a CPU: "
-          f"{JAX_SLAM_FINAL_ERR} px, scripts/slam_reference_error.py); "
-          f"{len(log_d)} accelerator steps; launches {launches_d} ({card})")
+    check(slam_row["cfg"] == cfg, "bench_slam's config is not the slam "
+          "driver's")
+    err_d, graph = slam_row.pop("final_err_px"), slam_row.pop("graph")
+    res_state = slam_row.pop("state")
+    del slam_row["cfg"]
+    slam_row["final_err_px"] = err_d
+    print(f"[slam] (d) {prob.n_keyframes} keyframes x {SLAM_IBK} sweeps "
+          f"(tools/bench.bench_slam): {slam_row['seconds']:.2f} s, "
+          f"{slam_row['sweeps_per_sec']:.1f} sweeps/s incl. insertion; final "
+          f"error {err_d:.6f} px (guard < 3.0; the JAX package at this shape "
+          f"and cadence on a CPU: {JAX_SLAM_FINAL_ERR} px, scripts/"
+          f"slam_reference_error.py); {slam_row['accel_steps']} accelerator "
+          f"steps in the run; launches {launches_d} over bench_slam's warm-up "
+          f"segment ({SLAM_IBK} sweeps) and the run ({n_sweeps_all} sweeps) "
+          f"({card})")
     check(np.isfinite(err_d) and err_d < 3.0, "SLAM (d): final error guard")
-    check(launches_d["sweep"] == n_sweeps_all
-          and launches_d["table"] >= n_sweeps_all
-          and launches_d["reduce"] >= 2 * n_sweeps_all
+    n_d = n_sweeps_all + SLAM_IBK
+    check(launches_d["sweep"] == n_d and launches_d["table"] >= n_d
+          and launches_d["reduce"] >= 2 * n_d
           and launches_d["sweep_planes"] == 0 and launches_d["gather"] == 0,
           "SLAM (d) did not go through H1, H2, H3 every sweep")
     # the sweep alone (accelerator off), with and without diagnostics
-    s, c0 = res_d.state, dataclasses.replace(cfg, accel_every=0)
+    s, c0 = res_state, dataclasses.replace(cfg, accel_every=0)
     rates = {}
     for diags in (False, True):
         gbp.run_gbp(s, graph, c0, 2, with_diagnostics=diags,
@@ -1161,11 +1180,12 @@ def _slam_parts(run, tmp, raw, prob, graph, cfg, dev, reset_counts,
           f"us a call by the host clock, {events:.2f} us by events back to "
           f"back; set up per call (edge_sums) {one:.2f} us by events "
           f"({card})")
-    del res_d, s
+    del res_state, s
 
     # (e) the slam driver in process, and its resume from the final
     # checkpoint
-    bal, traj = os.path.join(tmp, "fr1desk.txt"), os.path.join(tmp, "t.txt")
+    bal, traj = (os.path.join(tmp, "fr1desk_shape.txt"),
+                 os.path.join(tmp, "t.txt"))
     balio.save_bal(bal, raw)
     base = ["--bal_file", bal, "--ltn", str(LMK_NOISE),
             "--iters_between_kfs", str(SLAM_DRIVER_IBK), "--polish"]
@@ -1216,7 +1236,7 @@ def _slam_parts(run, tmp, raw, prob, graph, cfg, dev, reset_counts,
     del res_e
     final_e = float(err1.split("final reprojection error: ")[1].split()[0])
     return ([launches_a, launches_c, launches_d, launches_e],
-            h1_err, h4_err, h6_err, final_e)
+            h1_err, h4_err, h6_err, final_e, slam_row)
 
 
 def state_to(state, device):
@@ -1545,6 +1565,7 @@ def one_rank_times(rank, prob, cfg, s_edge, g_edge) -> dict:
 
     from gbp_poplar_tpu_torch import parallel
     from gbp_poplar_tpu_torch.core import build_graph, comm, gbp, init_state
+    from gbp_poplar_tpu_torch.tools import bench_scaling, paced_ms
 
     dev, group = rank.device, rank.group
     off = 2 * cfg.steps
@@ -1567,7 +1588,7 @@ def one_rank_times(rank, prob, cfg, s_edge, g_edge) -> dict:
                                        lmk_sharded=True)}
     out = {}
     for k in ("one", "edge", "map", "map", "edge", "one"):
-        host, events = paced_ms(runs[k], 1)
+        host, events = paced_ms(runs[k], 1, dev)
         out.setdefault(k, []).append(
             (host / SHARD_TIMED_SWEEPS, events / SHARD_TIMED_SWEEPS))
     for k, fn in runs.items():
@@ -1577,35 +1598,15 @@ def one_rank_times(rank, prob, cfg, s_edge, g_edge) -> dict:
     sums = {k: [torch.ones(sh, device=dev) for sh in v]
             for k, v in payload.items()}
     for k in ("edge", "map", "map", "edge"):
-        out.setdefault(f"reduce {k}", []).append(paced_ms(
-            lambda: comm.all_sum(group, sums[k]), SHARD_TIMED))
+        out.setdefault(f"reduce {k}", []).append(
+            bench_scaling.all_reduce_ms(group, sums[k], dev))
     for k in payload:
         out[f"busy reduce {k}"] = busy_ms(
-            lambda: comm.all_sum(group, sums[k]), SHARD_TIMED)
+            lambda: comm.all_sum(group, sums[k]),
+            bench_scaling.ALL_REDUCE_REPS)
     out["bytes"] = {k: 4 * sum(a * b for a, b in v)
                     for k, v in payload.items()}
     return out
-
-
-def paced_ms(fn, reps: int) -> tuple[float, float]:
-    """(host, events) ms per call of ``fn()`` over ``reps`` calls after a
-    warm-up call: the host's time to issue them (no synchronise inside)
-    and the CUDA events' time from the first one's start to the last one's
-    end. Equal times: the host sets the pace."""
-    import torch
-
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    stop = torch.cuda.Event(enable_timing=True)
-    t0 = time.perf_counter()
-    start.record()
-    for _ in range(reps):
-        fn()
-    stop.record()
-    host = time.perf_counter() - t0
-    torch.cuda.synchronize()
-    return host / reps * 1e3, start.elapsed_time(stop) / reps
 
 
 def busy_ms(fn, reps: int) -> float:
@@ -1788,7 +1789,9 @@ def shard_phase(dev, card, coarse_err, slam_e_err):
     print(f"[shard] (a) the all-reduce alone, ms a call, in the order edge, "
           f"map, map, edge: edge's {times['bytes']['edge']} B "
           f"{readings('reduce edge')}, map's {times['bytes']['map']} B "
-          f"{readings('reduce map')} (NCCL at world size 1; {card})")
+          f"{readings('reduce map')} (NCCL at world size 1, timed by "
+          f"tools/bench_scaling.all_reduce_ms as phase 16 (f)'s latency; "
+          f"{card})")
     check(all(np.isfinite(v).all() for k, v in times.items()
               if k != "bytes"), "(a) a time is not finite")
 
@@ -2149,6 +2152,138 @@ def tools_phase(dev, card, prob_v, venice_means, t_script, ev, h6_alone,
     return launches
 
 
+def _captured(fn, *args, **kwargs):
+    """(fn's result, its stdout lines, its stderr lines): a tool's human
+    lines, printed by the caller under its phase's prefix."""
+    import contextlib
+    import io
+
+    out, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        r = fn(*args, **kwargs)
+    return r, out.getvalue().splitlines(), err.getvalue().splitlines()
+
+
+def bench_main(path: str) -> tuple[int, list, list]:
+    """tools/bench.main() at its full workload on the BAL file ``path``,
+    with the Ladybug and Venice rows and without the sequences' rows:
+    (return code, stdout lines, stderr lines)."""
+    import os
+
+    from gbp_poplar_tpu_torch.tools import bench
+
+    env = {"GBP_BENCH_SEQ": path, "GBP_BENCH_EXTRA": "0",
+           "GBP_BENCH_SCALE": "1", "GBP_BENCH_VENICE": "1"}
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        return _captured(bench.main)
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def bench_phase(dev, card, slam_row, reset_counts, read_counts):
+    """Phase 16: the measurement tools on the card (``[bench]`` lines; see
+    the module docstring, (a)-(f)). ``slam_row``: phase 12 (d)'s
+    bench_slam row. Returns the phase's launch counts."""
+    import os
+    import tempfile
+    from types import SimpleNamespace
+
+    import torch
+
+    from gbp_poplar_tpu_torch.tools import bench_ablate, bench_scaling
+    from gbp_poplar_tpu_torch.tools import bench_sweep, count_edge_ops
+    from gbp_poplar_tpu_torch.tools import scaling_model
+    from gbp_poplar_tpu_torch.utils import balio
+
+    t_phase = time.perf_counter()
+    reset_counts()
+    # (a) the benchmark's JSON line, its headline on a synthetic file at
+    # TUM fr1xyz's size (not the sequence: the row names the file)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "synthetic_%dkf_%dlmk_%dobs.txt"
+                            % BENCH_TUM_SHAPE)
+        balio.save_bal(path, balio.synthetic_problem_large(*BENCH_TUM_SHAPE))
+        t0 = time.perf_counter()
+        rc, out, err = bench_main(path)
+    for ln in err:
+        print(f"[bench] (a)   {ln}")
+    check(rc == 0, "tools/bench.main: a guard failed")
+    data = json.loads(out[-1])
+    check(set(data) == {"metric", "value", "unit", "vs_baseline", "extra"},
+          "tools/bench.main: the JSON line's keys")
+    check({"ladybug_ms_per_sweep", "ladybug_run_gbp_ms_per_sweep",
+           "venice_ns_per_edge"} <= set(data["extra"]),
+          "tools/bench.main: the scale rows are missing")
+    print(f"[bench] {out[-1]}")
+    print(f"[bench] (a) tools/bench.main in {time.perf_counter() - t0:.1f} s"
+          f" ({card})")
+    torch.cuda.empty_cache()
+
+    # (b) the SLAM row: phase 12 (d)'s run of the same function
+    print(f"[bench] (b) bench_slam at the TUM fr1desk shape, {SLAM_IBK} "
+          f"sweeps a keyframe (phase 12 (d)): {slam_row['sweeps_per_sec']:.1f}"
+          f" sweeps/s incl. insertion, final error "
+          f"{slam_row['final_err_px']:.6f} px ({slam_row['device']})")
+
+    # (c) bench_sweep: the size ladder, then Venice's production loop
+    for names, production in ((["scale"], False), (["venice"], True)):
+        _, out, err = _captured(bench_sweep.bench_names, names, production,
+                                dev)
+        for ln in out + err:
+            print(f"[bench] (c) {ln}")
+    torch.cuda.empty_cache()
+
+    # (d) the ablation at the Ladybug shape (the tools' own problem)
+    prob = balio.synthetic_problem_large(*LADYBUG_SHAPE)
+    r, out, err = _captured(bench_ablate.ablate, prob, "ladybug", 50, dev)
+    for ln in out + err:
+        print(f"[bench] (d) {ln}")
+    full, raw = r["ms"]["full"], data["extra"]["ladybug_ms_per_sweep"]
+    print(f"[bench] (d) full {full:.4f} ms against the raw chain's "
+          f"{raw:.4f} in (a): {full / raw - 1:+.1%} ({card})")
+
+    # (e) the operation count, and its bound beside H1's bytes bound
+    r = count_edge_ops.edge_ops(device=dev)
+    for ln in count_edge_ops.report(r):
+        print(f"[bench] (e) {ln}")
+    graph_b = SimpleNamespace(n_edges=data["extra"]["ladybug_edges"],
+                              intr=None, n_keyframes=prob.n_keyframes,
+                              n_points=prob.n_points)
+    b_bytes, _ = least_ms(sweep_bytes(graph_b, False), (0, 0))
+    pm, n_e = r["modes"]["premu"], graph_b.n_edges
+    b_ops = count_edge_ops.ops_ms(pm["one"] * n_e, pm["trans"] * n_e,
+                                  count_edge_ops.card_rates())
+    print(f"[bench] (e) H1 at the Ladybug shape: operations bound "
+          f"{b_ops:.4f} ms, bytes bound {b_bytes:.4f} ms ({card})")
+    check(b_ops < b_bytes, "H1's operations bound passed its bytes bound")
+
+    # (f) bench_scaling at the cards present (N = 1 on one card), and the
+    # scaling model from (a)'s T1 and the all-reduce measured here
+    for mode in bench_scaling.MODES:
+        _, out, err = _captured(bench_scaling.scaling, prob, "ladybug", 100,
+                                mode, dev)
+        for ln in out + err:
+            print(f"[bench] (f) {ln}")
+    _, out, err = _captured(scaling_model.model, "ladybug", prob, raw,
+                            device=dev)
+    for ln in out + err:
+        print(f"[bench] (f) {ln}")
+    del prob
+    launches = read_counts()
+    print(f"[bench] launches in phase 16: {launches}; phase 16 in "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    check(all(launches[k] > 0 for k in ("sweep", "table", "reduce",
+                                        "sweep_planes", "gather")),
+          "phase 16 did not launch H1-H5 on the card")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -2407,7 +2542,8 @@ def main() -> int:
             lambda: sweep_kernel.sweep(st_r, graph_l, ct, lt, cfg,
                                        reference=True))), None),
         "table": (h2_b, h2_by, None),
-        "reduce": (*least_ms(cam_w[0] + lmk_w[0], cam_w[1] + lmk_w[1]),
+        "reduce": (*least_ms(cam_w[0] + lmk_w[0],
+                             (cam_w[1][0] + lmk_w[1][0], 0)),
                    time_reduce_sides(st_k, graph_l, n_real, card)),
         "diag": (*least_ms(diag_bytes(graph_l, None),
                            count_ops(lambda: h6(True))), None),
@@ -2684,7 +2820,7 @@ def main() -> int:
     yard["sweep_planes"] = (*least_ms(sweep_bytes(graph_v, True), count_ops(
         lambda: sweep_kernel.sweep_planes(st_r, graph_v, bc, bl, cfg_u,
                                           reference=True))), None)
-    yard["gather"] = (*least_ms(gather_bytes, 0), times["gather"][1])
+    yard["gather"] = (*least_ms(gather_bytes, (0, 0)), times["gather"][1])
     for k in ("sweep_planes", "gather"):
         b, by, lib = yard[k]
         print(f"[time] {k}: kernel {times[k][0]:.4f} ms, plain PyTorch "
@@ -2701,7 +2837,7 @@ def main() -> int:
     ct, lt = table_kernel.build_tables(s.cam_bel, s.lmk_bel)
     h1_v = cuda_ms(lambda: sweep_kernel.sweep(st_k, graph_v, ct, lt, cfg_u),
                    TIMED_SWEEPS)
-    b, by = least_ms(sweep_bytes(graph_v, False), 0)
+    b, by = least_ms(sweep_bytes(graph_v, False), (0, 0))
     print(f"[time] sweep at the Venice shape: kernel {h1_v:.4f} ms; bound "
           f"{b:.4f} ms by {by} ({b / h1_v:.0%} of it reached) at {e_v} "
           f"padded edges ({card})")
@@ -2760,7 +2896,7 @@ def main() -> int:
     del raw_l, prob_l
     launches_lm = lm_phase(prob_v, venice_means, cfg_u, dev, reset_counts,
                            read_counts, card)
-    launches_s, h1_slam, h4_slam, h6_slam, slam_e_err = slam_phase(
+    launches_s, h1_slam, h4_slam, h6_slam, slam_e_err, slam_row = slam_phase(
         dev, reset_counts, read_counts, card, compare_sweeps)
     h1_err, h4_err = max(h1_err, h1_slam), max(h4_err, h4_slam)
     h6_err = max(h6_err, h6_slam)
@@ -2774,6 +2910,9 @@ def main() -> int:
     launches_t = tools_phase(dev, card, prob_v, venice_means, t_script,
                              {k: times[k][0] for k in ("sweep", "reduce")},
                              h6_ms, reset_counts, read_counts)
+    del prob_v, venice_means
+    torch.cuda.empty_cache()
+    launches_b = bench_phase(dev, card, slam_row, reset_counts, read_counts)
 
     replaces = {
         "sweep": ("gbp_poplar_tpu_torch/csrc/sweep.cu",
@@ -2792,7 +2931,8 @@ def main() -> int:
     launches = {k: sum(run[k] for run in (launches_l, launches_v, launches_c,
                                           launches_d, launches_lm,
                                           *launches_s, launches_u,
-                                          *launches_x, launches_t))
+                                          *launches_x, launches_t,
+                                          launches_b))
                 for k in replaces}
     check(all(n > 0 for n in launches.values()),
           "a kernel was never launched by the main paths")

@@ -7,7 +7,22 @@ numbers as a dict and a ``main(argv)`` for ``python -m``:
   - ``memory_ledger``: the device memory of every graph and state tensor
     by field, and the peak per stage of a solve;
   - ``profile_sweep``: device time per kernel inside ``run_gbp`` by
-    ``torch.profiler``, and the device's busy share.
+    ``torch.profiler``, and the device's busy share;
+
+and of the measurement scripts (the yardstick of a benchmark):
+
+  - ``bench``: the headline sweeps/s with its guarded extra rows (a TUM
+    file, the Ladybug and Venice shapes, incremental SLAM), one JSON line;
+  - ``bench_sweep``: ms/sweep of the raw sweep chain or ``run_gbp`` at a
+    named problem, and the problem-size ladder;
+  - ``count_edge_ops``: the sweep body's operations per edge by class, and
+    the card's bound on them;
+  - ``bench_ablate``: the sweep's parts (tables + H1 + H3, H4, H5, H3)
+    timed alone and in pairs;
+  - ``bench_scaling``: sweeps/s of the sharded solvers at 1, 2, 4, ...
+    cards;
+  - ``scaling_model``: the predicted efficiency at N cards from the
+    measured all-reduce payload, sweep time and per-call latency.
 
 Each runs on the drivers' device (``drivers.common.select_device``:
 ``cuda:0``, the CPU only under ``GBP_PLATFORM=cpu``, an error without a
@@ -16,7 +31,9 @@ card) unless the caller passes ``device``.
 
 from __future__ import annotations
 
+import math
 import subprocess
+import time
 
 import torch
 
@@ -49,3 +66,63 @@ def device_label(dev: torch.device) -> str:
     except (OSError, subprocess.TimeoutExpired):
         pass
     return torch.cuda.get_device_name(dev)
+
+
+def paced_ms(fn, reps: int, dev: torch.device) -> tuple[float, float]:
+    """(host, device) ms per call of ``fn()`` over ``reps`` calls after a
+    warm-up call: the host's time to issue them (no synchronise inside)
+    and, on a card, the CUDA events' time from the first one's start to
+    the last one's end (on the CPU the host's time again). Equal times:
+    the host sets the pace."""
+    fn()
+    synchronize(dev)
+    if dev.type != "cuda":
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        host = (time.perf_counter() - t0) / reps * 1e3
+        return host, host
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    for _ in range(reps):
+        fn()
+    stop.record()
+    host = time.perf_counter() - t0
+    stop.synchronize()
+    return host / reps * 1e3, start.elapsed_time(stop) / reps
+
+
+def time_reps(fn, state, reps: int = 3, after=None) -> tuple[float, list]:
+    """Seconds of the fastest of ``reps`` calls ``fn(s)``, after one
+    warm-up call. The solver updates its state in place, so every call
+    (the warm-up too) gets its own ``state.clone()``, made outside the
+    timed window, and ``state`` itself is never touched. Timed by CUDA
+    events on a card (the host's pace included, as a caller waits for
+    it), by the host clock on the CPU. ``after(out)`` runs on each timed
+    call's result outside the window; returns (seconds, [its results])."""
+    dev = state.pk.device
+    fn(state.clone())
+    synchronize(dev)
+    best, results = math.inf, []
+    for _ in range(reps):
+        s = state.clone()
+        synchronize(dev)
+        if dev.type == "cuda":
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(s)
+            end.record()
+            end.synchronize()
+            dt = start.elapsed_time(end) / 1e3
+        else:
+            t0 = time.perf_counter()
+            out = fn(s)
+            dt = time.perf_counter() - t0
+        best = min(best, dt)
+        if after is not None:
+            results.append(after(out))
+        del s, out
+    return best, results

@@ -119,7 +119,7 @@ def probe_h4(dev) -> None:
         st = s.clone()
         dev_ms = cs.device_ms(lambda: run(st), cs.TIMED_SWEEPS, kernel)
         ev_ms = cs.cuda_ms(lambda: run(st), cs.TIMED_SWEEPS)
-        bound, by = cs.least_ms(n_bytes, 0)
+        bound, by = cs.least_ms(n_bytes, (0, 0))
         print(f"[h4] {label}: device {dev_ms:.4f} ms per launch (profiler), "
               f"events {ev_ms:.4f} ms; bound {bound:.4f} ms by {by} "
               f"({bound / dev_ms:.0%} of it reached)")
@@ -160,7 +160,7 @@ def probe_h2(dev) -> None:
             launch_ms = cs.device_ms(fn, cs.TIMED_SWEEPS, "table_kernel")
             call_ms = n * launch_ms
             ev = cs.cuda_ms(fn, cs.TIMED_SWEEPS)
-            b, _ = cs.least_ms(n_bytes, 0)
+            b, _ = cs.least_ms(n_bytes, (0, 0))
             print(f"[h2] {label} ({n_c} cameras, {n_l} landmarks), {name}: "
                   f"device {call_ms:.4f} ms per call ({n} launch(es), "
                   f"{launch_ms:.4f} ms each), events {ev:.4f} ms per call; "
