@@ -160,7 +160,24 @@ the final ``ok`` line:
      on two gloo CPU ranks and an NCCL all-reduce's cost a call at world
      size 1 on the card (phase 14 (a)'s timer, ``bench_scaling.
      all_reduce_ms``). H1-H5
-     must each launch on the card in the phase.
+     must each launch on the card in the phase;
+  17. the sequence-level tools (``[seq]`` lines; the JAX package's TUM
+     scripts' counterparts), each at its script's budget on perturbed
+     synthetic BAL files of the three TUM sequences' shapes (fr2robot2's
+     (20, 862, 4), fr1xyz's (42, 2194, 6), fr1desk's (62, 1900, 7)), named
+     by the shape: (a) ``validate_sequences`` on all three (1,000 sweeps,
+     the GN oracle's 40 LM iterations, SLAM at 300 sweeps a keyframe);
+     (b) ``diagnose_accuracy`` at the fr1desk shape (1,500 sweeps), whose
+     LM polish of the GBP point must reach the cold GN's MAP cost within
+     1e-4 and its trajectory within 1 mm (ATE); (c) ``exp_ate_grid`` at
+     the fr1xyz shape (1,500 sweeps; ``base``, ``fused=0``,
+     ``relin_drift_threshold=0``, ``accel_every=0``), ``base`` and
+     ``fused=0`` within 1e-3 px; (d) ``exp_drift_phase`` at the fr1desk
+     shape (1,500 sweeps, 300 in phase 1); (e) ``tune_schedule`` on all
+     three (1,000 sweeps; ``reference``, ``gn``, ``drift``). Every error,
+     cost and ATE must be finite, and H1-H6 must each launch on the card
+     in the phase. The TUM guards (< 1.0 px, ATE < 0.01 m) are the real
+     sequences' and do not apply to synthetic files.
 
 The last lines are one JSON object of per-kernel results (launches on
 the main paths, largest difference from the plain version, kernel, plain
@@ -265,6 +282,26 @@ PROFILE_SWEEPS = 50        # (d): sweeps traced per profile
 # headline on a synthetic BAL file of TUM fr1xyz's size (42 keyframes,
 # 2,194 landmarks, 12,908 observations; here 13,164)
 BENCH_TUM_SHAPE = (42, 2194, 6)
+
+# the sequence-level tools (phase 17; tools/validate_sequences,
+# diagnose_accuracy, exp_ate_grid, exp_drift_phase, tune_schedule), each at
+# its JAX script's budget, on perturbed synthetic BAL files of the three
+# TUM sequences' shapes (named by the shape, never by the sequence):
+# fr2robot2's 20 keyframes and 862 landmarks at 4 observations (3,448
+# edges against the sequence's 3,551), fr1xyz's (BENCH_TUM_SHAPE) and
+# fr1desk's (SLAM_SHAPE)
+FR2ROBOT2_SHAPE = (20, 862, 4)
+SEQ_SHAPES = (FR2ROBOT2_SHAPE, BENCH_TUM_SHAPE, SLAM_SHAPE)
+SEQ_DIAGNOSE_SWEEPS = 1500
+SEQ_GRID_SWEEPS = 1500
+SEQ_GRID_SPECS = ("base", "fused=0", "relin_drift_threshold=0",
+                  "accel_every=0")
+SEQ_GRID_AGREE_PX = 1e-3   # base against fused=0
+SEQ_DRIFT = (1500, 300)    # sweeps in all, in phase 1
+SEQ_TUNE_SWEEPS = 1000
+SEQ_TUNE_SETS = ("reference",
+                 "gn:relin_every_iter=1,lambda_damping=1,eta_damping=0.7",
+                 "drift:relin_drift_threshold=0.05")
 
 # The card's peak HBM3 bytes/s (H100 SXM, NVIDIA's data sheet). A
 # kernel's bound is the larger of its bytes over this and its operations
@@ -2284,6 +2321,114 @@ def bench_phase(dev, card, slam_row, reset_counts, read_counts):
     return launches
 
 
+def seq_phase(card, reset_counts, read_counts):
+    """Phase 17: the sequence-level tools on the card (``[seq]`` lines;
+    see the module docstring, (a)-(e)). Returns the phase's launch
+    counts."""
+    import math
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from gbp_poplar_tpu_torch.tools import diagnose_accuracy as da
+    from gbp_poplar_tpu_torch.tools import exp_ate_grid as eg
+    from gbp_poplar_tpu_torch.tools import exp_drift_phase as ed
+    from gbp_poplar_tpu_torch.tools import tune_schedule as ts
+    from gbp_poplar_tpu_torch.tools import validate_sequences as vs
+    from gbp_poplar_tpu_torch.utils import balio
+
+    def finite(*xs) -> bool:
+        return all(math.isfinite(float(x)) for x in xs)
+
+    def show(part, lines):
+        for ln in lines:
+            print(f"[seq] ({part}) {ln}")
+
+    t_phase = time.perf_counter()
+    tmp = tempfile.TemporaryDirectory()
+    paths = {}
+    for shape in SEQ_SHAPES:
+        paths[shape] = os.path.join(tmp.name, "synthetic_%dkf_%dlmk_%dobs.txt"
+                                    % shape)
+        balio.save_bal(paths[shape], perturbed_problem(shape))
+    desk, xyz = paths[SLAM_SHAPE], paths[BENCH_TUM_SHAPE]
+    reset_counts()
+
+    # (a) validate_sequences: GBP, the GN oracle and SLAM per file
+    for shape, path in paths.items():
+        t0 = time.perf_counter()
+        r, out, err = _captured(vs.run_sequence, path)
+        show("a", out + err)
+        print(f"[seq] (a) {os.path.basename(path)} in "
+              f"{time.perf_counter() - t0:.1f} s: GN cost {r['gn_cost']:.4f}")
+        check(finite(*(r[k] for k in ("gbp_err", "gn_err", "ate",
+                                      "slam_err", "ate_slam", "gn_cost"))),
+              f"validate_sequences at {shape}: a non-finite result")
+    torch.cuda.empty_cache()
+
+    # (b) diagnose_accuracy at the fr1desk shape: its basin test
+    t0 = time.perf_counter()
+    r, out, err = _captured(da.diagnose, desk, SEQ_DIAGNOSE_SWEEPS)
+    show("b", out + err)
+    st, g = r["stats"], r["gn"]
+    print(f"[seq] (b) LM polish of the GBP point against the cold GN: cost "
+          f"ratio {g['polish_gn_ratio']:.7f} (bound 1 +- {POLISH_RATIO_TOL}),"
+          f" ATE {g['polish_ate']:.6f} m (bound {POLISH_ATE_M}); in "
+          f"{time.perf_counter() - t0:.1f} s ({card})")
+    check(bool(np.isfinite(r["run"]["errs"]).all())
+          and finite(st["res_mean"], st["drift_max"], g["gn_err"], g["ate"],
+                     g["polish_cost"], *g["cost_gbp"], *g["cost_gn"]),
+          "diagnose_accuracy: a non-finite result")
+    check(abs(g["polish_gn_ratio"] - 1.0) <= POLISH_RATIO_TOL
+          and g["polish_ate"] < POLISH_ATE_M,
+          "diagnose_accuracy: the polish did not reach the GN optimum")
+    torch.cuda.empty_cache()
+
+    # (c) exp_ate_grid at the fr1xyz shape: fused=0 puts H5 and H4 on the
+    # path
+    prob = balio.load_bal(xyz)
+    r, out, err = _captured(eg.grid, prob, SEQ_GRID_SWEEPS, SEQ_GRID_SPECS)
+    show("c", out + err + eg.report(os.path.basename(xyz), prob,
+                                    SEQ_GRID_SWEEPS, r))
+    rows = {w["spec"]: w for w in r["rows"]}
+    check(finite(r["gn_err"], r["gn_cost"], *(w[k] for w in r["rows"]
+                                              for k in ("err", "ate",
+                                                        "ratio"))),
+          "exp_ate_grid: a non-finite result")
+    gap = abs(rows["base"]["err"] - rows["fused=0"]["err"])
+    print(f"[seq] (c) base against fused=0: {gap:.2e} px apart (bound "
+          f"{SEQ_GRID_AGREE_PX})")
+    check(gap <= SEQ_GRID_AGREE_PX, "exp_ate_grid: base and fused=0 differ")
+    torch.cuda.empty_cache()
+
+    # (d) exp_drift_phase at the fr1desk shape
+    _, out, err = _captured(ed.main, [desk, *map(str, SEQ_DRIFT)])
+    show("d", out + err)
+    check(all("nan" not in ln for ln in out) and len(out) == 6,
+          "exp_drift_phase: a schedule is missing or not finite")
+
+    # (e) tune_schedule on the three files
+    argv = ["--n_iters", str(SEQ_TUNE_SWEEPS)]
+    for path in paths.values():
+        argv += ["--seq", path]
+    for v in SEQ_TUNE_SETS:
+        argv += ["--set", v]
+    _, out, err = _captured(ts.main, argv)
+    show("e", out + err)
+    check(all("nan" not in ln for ln in out)
+          and len(out) == len(paths) * (len(SEQ_TUNE_SETS) + 2),
+          "tune_schedule: a variant is missing or not finite")
+    tmp.cleanup()
+    launches = read_counts()
+    print(f"[seq] launches in phase 17: {launches}; phase 17 in "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    check(all(n > 0 for n in launches.values()),
+          "phase 17 did not launch H1-H6 on the card")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -2913,6 +3058,8 @@ def main() -> int:
     del prob_v, venice_means
     torch.cuda.empty_cache()
     launches_b = bench_phase(dev, card, slam_row, reset_counts, read_counts)
+    torch.cuda.empty_cache()
+    launches_q = seq_phase(card, reset_counts, read_counts)
 
     replaces = {
         "sweep": ("gbp_poplar_tpu_torch/csrc/sweep.cu",
@@ -2932,7 +3079,7 @@ def main() -> int:
                                           launches_d, launches_lm,
                                           *launches_s, launches_u,
                                           *launches_x, launches_t,
-                                          launches_b))
+                                          launches_b, launches_q))
                 for k in replaces}
     check(all(n > 0 for n in launches.values()),
           "a kernel was never launched by the main paths")

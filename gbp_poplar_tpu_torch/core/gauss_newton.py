@@ -234,13 +234,18 @@ def _residual_sums_planes(camT, lmkT, graph: GBPGraph, nstds: float):
     return torch.sum(loss), torch.sum(torch.sqrt(r2))
 
 
+def _prior_cost_planes(camT, lmkT, priors: GNPriors) -> torch.Tensor:
+    """The Gaussian priors' part of the MAP cost."""
+    dc = camT.T - priors.cam_mu
+    dl = lmkT - priors.lmk_mu.T
+    return 0.5 * (torch.sum(priors.cam_lam[:, None] * dc * dc)
+                  + torch.sum(priors.lmk_lam[None, :] * dl * dl))
+
+
 def _map_cost_planes(camT, lmkT, graph: GBPGraph, priors: GNPriors,
                      nstds: float) -> torch.Tensor:
     loss, _ = _residual_sums_planes(camT, lmkT, graph, nstds)
-    dc = camT.T - priors.cam_mu
-    dl = lmkT - priors.lmk_mu.T
-    return loss + 0.5 * (torch.sum(priors.cam_lam[:, None] * dc * dc)
-                         + torch.sum(priors.lmk_lam[None, :] * dl * dl))
+    return loss + _prior_cost_planes(camT, lmkT, priors)
 
 
 def map_cost(cam: torch.Tensor, lmk: torch.Tensor, graph: GBPGraph,

@@ -22,7 +22,22 @@ and of the measurement scripts (the yardstick of a benchmark):
   - ``bench_scaling``: sweeps/s of the sharded solvers at 1, 2, 4, ...
     cards;
   - ``scaling_model``: the predicted efficiency at N cards from the
-    measured all-reduce payload, sweep time and per-call latency.
+    measured all-reduce payload, sweep time and per-call latency;
+
+and of the sequence-level validation scripts (a TUM sequence by name,
+under ``GBP_SEQUENCES_DIR``, or any BAL file):
+
+  - ``validate_sequences``: batch GBP, the GN oracle and incremental SLAM
+    per sequence (the accuracy and agreement table);
+  - ``diagnose_accuracy``: the final per-edge state of a solve, and its
+    comparison with the GN oracle (MAP cost split, the LM polish's basin
+    test);
+  - ``exp_ate_grid``: config variants against the GN oracle;
+  - ``exp_drift_phase``: the two-phase drift-relinearisation schedules;
+  - ``tune_schedule``: schedule variants and their error traces;
+
+with ``seq_common`` (their ``k=v`` override parser, the MAP objective
+split into robust and prior parts, the cold GN oracle).
 
 Each runs on the drivers' device (``drivers.common.select_device``:
 ``cuda:0``, the CPU only under ``GBP_PLATFORM=cpu``, an error without a
@@ -49,6 +64,16 @@ def resolve_device(device=None) -> torch.device:
 def synchronize(dev: torch.device) -> None:
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
+
+
+def timed(dev: torch.device, fn):
+    """(fn(), seconds on the host clock), the device synchronised before
+    each clock read."""
+    synchronize(dev)
+    t0 = time.perf_counter()
+    out = fn()
+    synchronize(dev)
+    return out, time.perf_counter() - t0
 
 
 def device_label(dev: torch.device) -> str:

@@ -32,7 +32,6 @@ blocks.
 from __future__ import annotations
 
 import sys
-import time
 
 import numpy as np
 import torch
@@ -41,21 +40,12 @@ from ..config import GBPConfig
 from ..core import build_graph, gauss_newton as gn, gbp, init_state
 from ..ops import linalg
 from ..utils import analysis, balio, evaluation
-from . import device_label, resolve_device, synchronize
+from . import device_label, resolve_device, timed
 
 LADYBUG_SHAPE = (1723, 156000, 7)     # keyframes, landmarks, obs/landmark
 VENICE_SHAPE = (1778, 994000, 5)
 POLISH_ITERS = 15
 COLD_ROUNDS, COLD_ITERS = 4, 10
-
-
-def _timed(dev, fn):
-    """(fn(), seconds on the host clock, the device synchronised)."""
-    synchronize(dev)
-    t0 = time.perf_counter()
-    out = fn()
-    synchronize(dev)
-    return out, time.perf_counter() - t0
 
 
 def _nonfinite_blocks(inv: torch.Tensor) -> int:
@@ -102,7 +92,7 @@ def compare_to_gn(problem, cam_mu: np.ndarray, lmk_mu: np.ndarray,
     cam = torch.tensor(cam_mu, dtype=torch.float32, device=dev)
     lmk = torch.tensor(lmk_mu, dtype=torch.float32, device=dev)
     gbp_cost = float(gn.map_cost(cam, lmk, graph1, pri, cfg))
-    res_p, t_p = _timed(dev, lambda: gn.solve_lm(
+    res_p, t_p = timed(dev, lambda: gn.solve_lm(
         cam, lmk, graph1, pri, cfg, n_lm_iters=POLISH_ITERS))
     out = {"gbp_cost": gbp_cost,
            "polish_err": float(res_p.reproj_err[-1]),
@@ -117,7 +107,7 @@ def compare_to_gn(problem, cam_mu: np.ndarray, lmk_mu: np.ndarray,
             c, l, lam = r.cam, r.lmk, float(r.lm_lambda)
         return r
 
-    res_g, t_g = _timed(dev, cold)
+    res_g, t_g = timed(dev, cold)
     gn_cost = float(res_g.cost[-1])
     gn_cam = res_g.cam.cpu().numpy()
     out.update(
@@ -129,7 +119,7 @@ def compare_to_gn(problem, cam_mu: np.ndarray, lmk_mu: np.ndarray,
         ate_polish=evaluation.ate_rmse(res_p.cam.cpu().numpy(), gn_cam),
         seconds={"polish": t_p, "gn": t_g})
     if census:
-        cen, t_c = _timed(dev, lambda: precond_census(
+        cen, t_c = timed(dev, lambda: precond_census(
             cam, lmk, graph1, pri, cfg, POLISH_ITERS))
         cen["same_decisions_as_polish"] = (cen["accepted"]
                                            == out["polish_accepted"])
@@ -146,7 +136,7 @@ def validate(problem, n_iters: int = 500, device=None,
     cfg = GBPConfig()
     graph = build_graph(problem, cfg, dev)
     state = init_state(problem, cfg, dev)
-    (state, diag), t_gbp = _timed(
+    (state, diag), t_gbp = timed(
         dev, lambda: gbp.solve(state, graph, cfg, n_iters=n_iters))
     errs = diag.reproj_err.cpu().numpy()
     cam_mu, lmk_mu = analysis.belief_means(state)
