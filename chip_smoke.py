@@ -57,12 +57,21 @@ the final ``ok`` line:
      call), H1, H2 (per kind, and H2 against its plain version on the
      Venice state) and H3 per variable kind with their bounds and H3's
      ``index_add``, ms/sweep of both pipelines with and without the
-     accelerator, and the accelerator's cost per chunk;
+     accelerator, the accelerator's cost per chunk and one step's time
+     with its device busy time, and the cost sums (H8) of two mean sets
+     against their plain version there;
   9. the coarse corrector at the Ladybug shape (cameras in their generated
      order): GBPConfig(coarse_groups=16), 400 sweeps, each boundary's
-     accelerator and coarse decisions, the final error against
-     kernels="reference", one coarse step's time, and the group sums (H3
-     over group-keyed segments) against their plain version;
+     accelerator and coarse decisions, equal to kernels="reference"'s up
+     to the first tie, the final error against it; on the solved state the
+     coarse step's per-edge terms (H7) per plane against their plain
+     version, their group sums (H3) against the plain sums, the cost sums
+     (H8) at 2 and 3 mean sets with and without 1,000 bad edges, each
+     again to the bit, both kernels' times beside their plain versions'
+     and bounds, the landmark prior terms' time; one coarse step's and its
+     increment's time, kernels and plain, with the device's busy time and
+     the increment's launches; and the group sums of random terms (H3 over
+     group-keyed segments) against their plain version;
   10. the ba driver in process (``drivers.ba.main``) at the Ladybug shape
      written as a BAL file, with its defaults (coarse corrector over 16
      groups, LM polish): 600 sweeps with checkpoints, trajectory and the
@@ -219,6 +228,18 @@ SWEEP_RTOL = 1e-4          # edge fields, relative to 1 + max |field|
 SWEEP_FLIP_FRAC = 1e-3     # lanes whose discrete outputs may differ
 MAIN_AGREE_PX = 0.05       # final error: kernels vs reference, px ...
 MAIN_AGREE_REL = 0.02      # ... or this fraction, whichever is larger
+# the coarse step's per-edge terms (H7), per plane, relative to the plane's
+# largest magnitude: the plain version's rotation matrix (ops/lie's matrix
+# form) and the kernel's (planes.cuh's unrolled form) round apart, and the
+# Jacobian's rotation block carries about an ulp of R over |w| (|w| down
+# to 1.3e-3 at the Ladybug shape), which b_c^T b_l can cancel
+COARSE_RTOL = 1e-3
+# the cost sums (H8), relative to the sum of |loss| (float64 against the
+# plain version's float32 sum)
+COST_RTOL = 1e-6
+# a chunk-boundary decision whose two best MAP costs lie within this
+# fraction of each other is a tie that two runs may break apart
+DECISION_TIE_RTOL = 1e-6
 
 # the coarse corrector and the ba driver (phases 9-11), at the ba driver's
 # defaults: 16 keyframe groups, an accelerator step every 50 sweeps from
@@ -692,13 +713,235 @@ def agree(label: str, err, err_r) -> None:
           f"{label} kernels and reference disagree")
 
 
+def coarse_bytes(graph, n_real: int) -> int:
+    """Bytes H7 must move: per real edge its two ids, measurement,
+    variance and activity (and intrinsics) read and its 90 terms written;
+    per camera its mean and basis, per landmark its mean, read once."""
+    per_edge = 4 + 4 + 8 + 4 + 4 + (12 if graph.intr is not None else 0)
+    return (n_real * (per_edge + 4 * 90) + 4 * (6 + 36) * graph.n_keyframes
+            + 4 * 3 * graph.n_points)
+
+
+def cost_bytes(graph, n_sets: int, bad) -> int:
+    """Bytes H8 must move: per edge its two ids, measurement, variance and
+    activity (and intrinsics, bad flag); per set each variable's mean; the
+    sums written."""
+    per_edge = (4 + 4 + 8 + 4 + 4 + (12 if graph.intr is not None else 0)
+                + (1 if bad is not None else 0))
+    return (graph.n_edges * per_edge
+            + n_sets * 4 * (6 * graph.n_keyframes + 3 * graph.n_points)
+            + 4 * n_sets)
+
+
+def decision_tie(st) -> bool:
+    """Whether a boundary's decisions rest on a tie: the accelerator's jump
+    (gain > 0) or the coarse step's best scale within DECISION_TIE_RTOL of
+    its runner-up."""
+    cur = abs(st.cost_cur.item())
+    if st.gain.item() > 0 and (abs(st.cost_cand.item() - st.cost_cur.item())
+                               <= DECISION_TIE_RTOL * cur):
+        return True
+    c = st.coarse
+    vals = sorted([c.cost_cur.item(), *c.cost_cand.tolist()])
+    return vals[1] - vals[0] <= DECISION_TIE_RTOL * abs(vals[0])
+
+
+def decisions(st) -> tuple:
+    """A boundary's decisions: the accelerator's jump applied, the coarse
+    gain."""
+    return (bool(st.accepted) and st.gain.item() > 0, st.coarse.gain.item())
+
+
+def same_decisions(log, log_r) -> int:
+    """The kernels' and the plain run's decisions at each boundary, equal up
+    to the first tie in either run; returns the boundaries compared."""
+    n = 0
+    for (at, a), (at_r, b) in zip(log, log_r):
+        check(at == at_r, "coarse path: the boundaries differ")
+        if decision_tie(a) or decision_tie(b):
+            print(f"[coarse] after sweep {at}: a tie (within "
+                  f"{DECISION_TIE_RTOL:g}); decisions compared up to here")
+            break
+        check(decisions(a) == decisions(b),
+              f"coarse path: the decisions after sweep {at} differ from "
+              f"the plain run's: {decisions(a)} against {decisions(b)}")
+        n += 1
+    return n
+
+
+def refit_case(dev):
+    """The ba driver's --refine_intrinsics step through H8: one refit on a
+    Snavely problem (40 keyframes, 1,500 points, focal lengths off by up to
+    7 %) after 40 sweeps, its three MAP costs priced by H8 on the refit's
+    candidate intrinsics, against the same refit with kernels="reference":
+    the same decision, the new (f, k1, k2) within 1e-4; a graph whose
+    intrinsics are a strided view prices to the bits of its contiguous
+    copy."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from gbp_poplar_tpu_torch.config import GBPConfig
+    from gbp_poplar_tpu_torch.core import build_graph, gbp, init_state
+    from gbp_poplar_tpu_torch.core.intrinsics import refit_intrinsics
+    from gbp_poplar_tpu_torch.ops import cost_kernel
+    from gbp_poplar_tpu_torch.utils import balio
+
+    prob = balio.synthetic_problem_snavely(40, 1500, pixel_noise=0.3, seed=3)
+    rng = np.random.default_rng(1)
+    prob.intrinsics[:, 0] *= rng.uniform(0.93, 1.07, prob.n_keyframes)
+    prob.intrinsics[:, 1] += rng.normal(0, 0.05, prob.n_keyframes)
+    cfg = GBPConfig(accel_every=0)
+    ref = dataclasses.replace(cfg, kernels="reference")
+    graph = build_graph(prob, cfg, dev)
+    s = gbp.initialise(init_state(prob, cfg, dev), graph, cfg)
+    s, _ = gbp.run_gbp(s, graph, cfg, 40, with_diagnostics=False)
+    before = cost_kernel.cost_sums.launches
+    new_intr, acc = refit_intrinsics(s, graph, cfg)
+    n_h8 = cost_kernel.cost_sums.launches - before
+    want_intr, want_acc = refit_intrinsics(s, graph, ref)
+    gap = ((new_intr - want_intr).abs()
+           / (want_intr.abs() + 1e-1)).max().item()
+    strided = dataclasses.replace(graph, intr=new_intr.T.contiguous().T)
+    same = torch.equal(
+        gbp.map_cost(s, strided, cfg),
+        gbp.map_cost(s, dataclasses.replace(graph, intr=new_intr), cfg))
+    print(f"[H8] refit_intrinsics on a Snavely problem ({graph.n_edges} "
+          f"edges): accepted {bool(acc)} (plain {bool(want_acc)}), {n_h8} H8 "
+          f"launches, new intrinsics against the plain refit's {gap:.3e} "
+          f"relative to 0.1 + |value| (bound 1e-4); strided intrinsics "
+          f"priced to the same bits: {same}")
+    check(n_h8 == 3 and bool(acc) == bool(want_acc) and gap <= 1e-4
+          and not strided.intr.is_contiguous() and same,
+          "refit_intrinsics through H8 differs from its plain version")
+
+
+def chunk_kernel_cases(prob, s, graph, cfg, card):
+    """H7 and H8 against their plain versions on the state ``s`` (phase
+    9's, after its solve): H7's planes per plane within COARSE_RTOL of the
+    plane's largest magnitude with the same edges dropped, their group sums
+    (H3) against the plain sums of the same planes and against the plain
+    sums of the plain planes, both within REDUCE_RTOL of the sum of
+    |terms|; H8
+    at K = 2 and 3 sets of means, with and without 1,000 bad edges, within
+    COST_RTOL of the sum of |loss|; both again to the bit; an intrinsics
+    refit through H8 (``refit_case``). Then each
+    kernel's time beside its plain version's and its bound, the landmark
+    prior terms' time. Returns ({kernel: (ms, plain ms)}, {kernel: (bound,
+    by, library)}, {kernel: largest difference})."""
+    import torch
+
+    from gbp_poplar_tpu_torch.core import coarse, gbp
+    from gbp_poplar_tpu_torch.ops import coarse_kernel, cost_kernel
+    from gbp_poplar_tpu_torch.ops import reduce_kernel
+
+    n_real = graph.cam_seg.var.shape[0]
+    cam_mu, lmk_mu = gbp._variable_means(s)
+    s_cam = coarse._fin(coarse._cam_rigid_basis(coarse._fin(cam_mu.T)))
+
+    def h7(reference=False):
+        return coarse_kernel.coarse_edge_blocks(cam_mu, lmk_mu, s_cam, s,
+                                                graph, cfg,
+                                                reference=reference)
+
+    k, r = h7(), h7(True)
+    again = torch.equal(k, h7())
+    dropped, dropped_r = (k == 0).all(dim=0), (r == 0).all(dim=0)
+    scale = r.abs().amax(dim=1, keepdim=True).clamp_min(1e-30)
+    gap = ((k - r).abs() / scale).amax(dim=1)
+    h7_err = (k - r).abs().max().item()
+    print(f"[H7] Ladybug after {COARSE_SWEEPS} sweeps, {COARSE_GROUPS} "
+          f"groups: {n_real} edges, {int(dropped_r.sum())} dropped (kernel "
+          f"{int(dropped.sum())}); max |kernel - plain| per plane relative "
+          f"to its largest magnitude {gap.max().item():.3e} (plane "
+          f"{gap.argmax().item()}, bound {COARSE_RTOL:g}); bit-identical on "
+          f"rerun: {again}")
+    check(again and torch.equal(dropped, dropped_r)
+          and gap.max().item() <= COARSE_RTOL, "H7 and its plain version "
+          "differ")
+    segs = coarse.group_segments(graph, COARSE_GROUPS)
+    for key, seg in (("cam", segs.edge_cam), ("lmk", segs.edge_lmk),
+                     ("pair", segs.edge_pair)):
+        rows = coarse_kernel.ROWS[key]
+        sums = reduce_kernel.segment_sum(k[rows], seg)
+        twice = torch.equal(sums, reduce_kernel.segment_sum(h7()[rows], seg))
+        size = reduce_kernel.segment_sum(r[rows].abs(), seg, reference=True)
+        size = size.clamp_min(1e-30)
+        plain_k = reduce_kernel.segment_sum(k[rows], seg, reference=True)
+        plain_r = reduce_kernel.segment_sum(r[rows], seg, reference=True)
+        rel_k = ((sums - plain_k).abs() / size).max().item()
+        rel_r = ((sums - plain_r).abs() / size).max().item()
+        print(f"[H7] group sums by {key} ({seg.n_var} segments), relative to "
+              f"the sum of |terms|: H3 on H7's planes against the plain sum "
+              f"of them {rel_k:.3e} (bound {REDUCE_RTOL}), against the plain "
+              f"sum of the plain planes {rel_r:.3e} (bound {REDUCE_RTOL}); "
+              f"H7 + H3 bit-identical on rerun: {twice}")
+        check(twice and max(rel_k, rel_r) <= REDUCE_RTOL,
+              f"H7's group sums by {key} differ")
+
+    rng = torch.Generator(device=cam_mu.device).manual_seed(1)
+    sets = [(cam_mu, lmk_mu)] + [
+        (cam_mu + 1e-4 * torch.randn(cam_mu.shape, generator=rng,
+                                     device=cam_mu.device),
+         lmk_mu + 1e-2 * torch.randn(lmk_mu.shape, generator=rng,
+                                     device=lmk_mu.device))
+        for _ in range(2)]
+    bad = bad_edges(prob, cfg, cam_mu.device)
+    h8_err = 0.0
+    for n_sets, mask in ((2, None), (3, bad), (3, None), (2, bad)):
+        args = (s, graph, sets[:n_sets], cfg.huber_nstds, mask)
+        got = cost_kernel.cost_sums(*args)
+        want = cost_kernel.cost_sums(*args, reference=True)
+        again = torch.equal(got, cost_kernel.cost_sums(*args))
+        rel = ((got - want).abs() / want.abs()).max().item()
+        h8_err = max(h8_err, (got - want).abs().max().item())
+        print(f"[H8] K={n_sets}" + ("" if mask is None else
+                                    f", {int(mask.sum())} edges bad")
+              + f": sums {[f'{x:.6f}' for x in got.tolist()]} (plain "
+              f"{[f'{x:.6f}' for x in want.tolist()]}), max relative to the "
+              f"sum of |loss| {rel:.3e} (bound {COST_RTOL:g}); bit-identical "
+              f"on rerun: {again}")
+        check(again and rel <= COST_RTOL, "H8 and its plain version differ")
+    refit_case(cam_mu.device)
+
+    times = {"coarse": (cuda_ms(h7, TIMED_SWEEPS), cuda_ms(lambda: h7(True),
+                                                          3))}
+    two = sets[:2]
+    times["cost"] = (
+        cuda_ms(lambda: cost_kernel.cost_sums(s, graph, two,
+                                              cfg.huber_nstds), TIMED_SWEEPS),
+        cuda_ms(lambda: cost_kernel.cost_sums(s, graph, two, cfg.huber_nstds,
+                                              reference=True), 3))
+    yard = {
+        "coarse": (*least_ms(coarse_bytes(graph, n_real),
+                             count_ops(lambda: h7(True))), None),
+        "cost": (*least_ms(cost_bytes(graph, 2, None), count_ops(
+            lambda: cost_kernel.cost_sums(s, graph, two, cfg.huber_nstds,
+                                          reference=True))), None)}
+    for key, what in (("coarse", f"{n_real} real edges"),
+                      ("cost", f"K = 2 sets, {graph.n_edges} padded edges")):
+        (ms, plain), (b, by, _) = times[key], yard[key]
+        print(f"[time] {key}: kernel {ms:.4f} ms, plain PyTorch {plain:.4f} "
+              f"ms at {what}; bound {b:.4f} ms by {by} ({b / ms:.0%} of it "
+              f"reached); one library call none ({card})")
+    lmkr = coarse._fin(lmk_mu.T)
+    s_lmk = coarse._lmk_rigid_basis(lmkr)
+    prior_ms = cuda_ms(lambda: coarse.lmk_prior_terms(s, lmkr, s_lmk), 5)
+    print(f"[coarse] the landmark prior terms (batched products over "
+          f"{graph.n_points} landmarks): {prior_ms:.4f} ms ({card})")
+    return times, yard, {"coarse": h7_err, "cost": h8_err}
+
+
 def coarse_phase(prob, dev, reset_counts, read_counts, card):
     """Phase 9: run_gbp with the coarse corrector at the Ladybug shape,
-    cameras in their generated order: every boundary's decisions, the
-    final error against kernels="reference", one coarse step's time, and
-    the group sums (H3 over the group-keyed segments) against their plain
-    version. Returns (launch counts, largest group-sum difference, the
-    final error)."""
+    cameras in their generated order: every boundary's decisions, equal to
+    kernels="reference"'s up to the first tie, the final error against
+    it, H7 and H8 against their plain versions (``chunk_kernel_cases``),
+    one coarse step's time, and the group sums (H3 over the group-keyed
+    segments) against their plain version. Returns (launch counts, largest
+    group-sum difference, the final error, the chunk kernels' times,
+    bounds and largest differences)."""
     import numpy as np
     import torch
 
@@ -714,16 +957,20 @@ def coarse_phase(prob, dev, reset_counts, read_counts, card):
     s, diag = gbp.run_gbp(s, graph, cfg, COARSE_SWEEPS, accel_log=log)
     launches = read_counts()
     err = diag.reproj_err.cpu().numpy()
-    for n_at, st in log:
+
+    def boundary_line(tag, n_at, st):
         c = st.coarse
         moved = bool(st.accepted) and st.gain.item() > 0
-        print(f"[coarse] after sweep {n_at}: accelerator gain "
+        print(f"[coarse] {tag}after sweep {n_at}: accelerator gain "
               f"{st.gain.item():.4f} {'applied' if moved else 'not applied'} "
               f"(MAP cost {st.cost_cur.item():.9e} -> candidate "
               f"{st.cost_cand.item():.9e}); coarse gain {c.gain.item():g} "
               f"(cost to beat {c.cost_cur.item():.9e}, scale 1 "
               f"{c.cost_cand[0].item():.9e}, scale 0.3 "
               f"{c.cost_cand[1].item():.9e})")
+
+    for n_at, st in log:
+        boundary_line("", n_at, st)
     n_coarse = sum(st.coarse.gain.item() > 0 for _, st in log)
     print(f"[coarse] kernels: error {err0:.4f} px after initialise -> "
           f"{err[-1]:.4f} px after {COARSE_SWEEPS} sweeps (min "
@@ -735,28 +982,69 @@ def coarse_phase(prob, dev, reset_counts, read_counts, card):
           "coarse path: the steps did not come at 160, 210, ..., 360")
     check(all(st.coarse is not None for _, st in log),
           "coarse path: an accelerator step without its coarse step")
+    # H7 once a coarse step; H8 once an accelerator step (the current
+    # means and the candidate) and once a coarse step (its two scales)
     check(launches["sweep"] == COARSE_SWEEPS
           and launches["table"] >= COARSE_SWEEPS
-          and launches["reduce"] >= 2 * COARSE_SWEEPS,
-          "coarse path did not go through H1, H2, H3 every sweep")
+          and launches["reduce"] >= 2 * COARSE_SWEEPS
+          and launches["coarse"] == len(log)
+          and launches["cost"] == 2 * len(log),
+          "coarse path did not go through H1, H2, H3 every sweep and H7, "
+          "H8 every boundary")
 
     ref = dataclasses.replace(cfg, kernels="reference")
     s_r = gbp.initialise(init_state(prob, ref, dev), graph, ref)
-    _, diag_r = gbp.run_gbp(s_r, graph, ref, COARSE_SWEEPS)
+    log_r = []
+    _, diag_r = gbp.run_gbp(s_r, graph, ref, COARSE_SWEEPS, accel_log=log_r)
+    for n_at, st in log_r:
+        boundary_line("reference: ", n_at, st)
+    n_same = same_decisions(log, log_r)
+    print(f"[coarse] decisions equal to the reference's at {n_same} of "
+          f"{len(log)} boundaries (up to the first tie)")
     agree("[coarse]", err, diag_r.reproj_err.cpu().numpy())
     del s_r, diag_r
 
+    chunk = chunk_kernel_cases(prob, s, graph, cfg, card)
+
     degs = gbp._active_degrees(s, graph, cfg)
-    st = s.clone()
-    cost = gbp.map_cost(st, graph, cfg)
-    step_ms = cuda_ms(lambda: gbp._coarse_step(st, graph, cfg, degs,
-                                               cost=cost), 5)
-    inc_ms = cuda_ms(lambda: coarse.coarse_increment(
-        st, graph, cfg, *gbp._variable_means(st)), 5)
-    print(f"[coarse] one coarse step {step_ms:.4f} ms (the increment "
-          f"{inc_ms:.4f} ms) at {graph.n_edges} padded edges, "
-          f"{COARSE_GROUPS} groups ({card})")
-    del st
+    for label, c in (("kernels", cfg), ("reference", ref)):
+        st = s.clone()
+        cost = gbp.map_cost(st, graph, c)
+        step_ms = cuda_ms(lambda: gbp._coarse_step(st, graph, c, degs,
+                                                   cost=cost), 5)
+        def increment():
+            return coarse.coarse_increment(st, graph, c,
+                                           *gbp._variable_means(st))
+
+        inc_ms = cuda_ms(increment, 5)
+        print(f"[coarse] {label}: one coarse step {step_ms:.4f} ms (the "
+              f"increment {inc_ms:.4f} ms) at {graph.n_edges} padded edges, "
+              f"{COARSE_GROUPS} groups ({card})")
+        # where the time goes: the device's busy time against the events'
+        step_busy = busy_ms(lambda: gbp._coarse_step(st, graph, c, degs,
+                                                     cost=cost), 3)
+        inc_ops = op_counts(increment)
+        print(f"[coarse] {label}: device busy {step_busy:.4f} ms of the "
+              f"step, {busy_ms(increment, 3):.4f} ms of the increment "
+              f"(profiler); the increment {inc_ops[0]} aten operations, "
+              f"{inc_ops[1]} device launches ({card})")
+        del st
+    # H7 and H8 inside run_gbp: two live chunks, two boundaries
+    from gbp_poplar_tpu_torch.tools import profile_sweep
+
+    n_live = 2 * cfg.accel_every
+    rp = profile_sweep.profile_run(s.clone(), graph, cfg, n_live,
+                                   iter_offset=10 * cfg.accel_start)
+    inside = {kernel_of(name): (us * n_live, n * n_live)
+              for name, us, _, n in rp["kernels"]
+              if kernel_of(name) in ("coarse", "cost")}
+    check(set(inside) == {"coarse", "cost"},
+          "coarse path: H7 or H8 missing from run_gbp's trace")
+    print(f"[coarse] inside run_gbp ({n_live} live sweeps, profiler): "
+          + ", ".join(f"{k} {us / n / 1e3:.4f} ms a launch ({n:.0f} "
+                      f"launches)" for k, (us, n) in inside.items())
+          + f"; device busy {rp['busy']:.1%} of the {rp['span_ms']:.3f} ms "
+          f"span ({card})")
 
     segs = coarse.group_segments(graph, COARSE_GROUPS)
     x = torch.randn((graph.n_edges, 6, 6), device=dev,
@@ -777,7 +1065,7 @@ def coarse_phase(prob, dev, reset_counts, read_counts, card):
               f"rerun: {again}")
         check(again and rel <= REDUCE_RTOL, f"coarse sums {label} differ")
         worst = max(worst, diff.max().item())
-    return launches, worst, float(err[-1])
+    return launches, worst, float(err[-1]), chunk
 
 
 def driver_phase(raw, dev, reset_counts, read_counts, card, work):
@@ -1315,7 +1603,8 @@ def utils_phase(held, bal, dev, reset_counts, read_counts, card):
             for _, g, st, c in cases]
     launches = read_counts()
     check(launches == {"sweep": 0, "table": 0, "reduce": 4,
-                       "sweep_planes": 0, "gather": 0, "diag": 0},
+                       "sweep_planes": 0, "gather": 0, "diag": 0,
+                       "coarse": 0, "cost": 0},
           "(a) weaken_priors did not go through H3 once per kind")
     h3_err = 0.0
     for (label, g, st, c), wk in zip(cases, weak):
@@ -1508,13 +1797,16 @@ def utils_phase(held, bal, dev, reset_counts, read_counts, card):
 
 def kernel_wrappers() -> dict:
     """Each kernel's wrapper, whose ``launches`` counts its launches."""
+    from gbp_poplar_tpu_torch.ops import coarse_kernel, cost_kernel
     from gbp_poplar_tpu_torch.ops import diag_kernel, reduce_kernel
     from gbp_poplar_tpu_torch.ops import sweep_kernel, table_kernel
 
     return {"sweep": sweep_kernel.sweep, "table": table_kernel.build_tables,
             "reduce": reduce_kernel.segment_sum,
             "sweep_planes": sweep_kernel.sweep_planes,
-            "gather": reduce_kernel.gather, "diag": diag_kernel.edge_sums}
+            "gather": reduce_kernel.gather, "diag": diag_kernel.edge_sums,
+            "coarse": coarse_kernel.coarse_edge_blocks,
+            "cost": cost_kernel.cost_sums}
 
 
 def reset_kernel_counts() -> None:
@@ -1979,7 +2271,8 @@ def kernel_of(name: str) -> str | None:
     for key, part in (("sweep_planes", "sweep_planes_kernel"),
                       ("sweep", "sweep_kernel"), ("table", "table_kernel"),
                       ("reduce", "reduce_"), ("gather", "gather_kernel"),
-                      ("diag", "diag_sums")):
+                      ("diag", "diag_sums"), ("coarse", "coarse_blocks"),
+                      ("cost", "cost_sums")):
         if part in name:
             return key
     return None
@@ -2441,8 +2734,9 @@ def main() -> int:
     from gbp_poplar_tpu_torch.config import GBPConfig, InitConfig
     from gbp_poplar_tpu_torch.core import build_graph, factor_graph as fg
     from gbp_poplar_tpu_torch.core import gbp, init_state
-    from gbp_poplar_tpu_torch.ops import _cuda, diag_kernel, reduce_kernel
-    from gbp_poplar_tpu_torch.ops import sweep_kernel, table_kernel
+    from gbp_poplar_tpu_torch.ops import _cuda, cost_kernel, diag_kernel
+    from gbp_poplar_tpu_torch.ops import reduce_kernel, sweep_kernel
+    from gbp_poplar_tpu_torch.ops import table_kernel
     from gbp_poplar_tpu_torch.utils import analysis, balio, priors
 
     t_script = time.perf_counter()
@@ -2733,7 +3027,8 @@ def main() -> int:
                          "table": LADYBUG_SWEEPS + 1
                                   + sweep_runs(cfg, LADYBUG_SWEEPS),
                          "reduce": 2 * LADYBUG_SWEEPS + 2, "sweep_planes": 0,
-                         "gather": 0, "diag": LADYBUG_SWEEPS + 1},
+                         "gather": 0, "diag": LADYBUG_SWEEPS + 1,
+                         "coarse": 0, "cost": 0},
           "main path did not go through every kernel once per sweep")
 
     s_r = gbp.initialise(init_state(prob_l, ref_cfg, dev), graph_l, ref_cfg)
@@ -2914,14 +3209,16 @@ def main() -> int:
     # (H2, both kinds in one launch) after every sweep for H6, which the
     # 200 averaged sweeps' means read too, and once for the error after
     # initialise; reductions (H3) also at initialise and for the
-    # accelerator's active degrees
+    # accelerator's active degrees; each accelerator step prices its two
+    # mean sets in one launch of H8
     check(launches_v == {"sweep": 0, "table": VENICE_SWEEPS + 1,
                          "reduce": 2 * VENICE_SWEEPS + 4,
                          "sweep_planes": VENICE_SWEEPS,
                          "gather": 2 * VENICE_SWEEPS,
-                         "diag": VENICE_SWEEPS + 1},
+                         "diag": VENICE_SWEEPS + 1, "coarse": 0,
+                         "cost": len(accel_log)},
           "Venice main path did not go through H5, H4, H3 and H6 every "
-          "sweep")
+          "sweep and H8 every accelerator step")
 
     # ---- 7. agreement at the Venice shape ----
     ends = {}
@@ -3023,18 +3320,41 @@ def main() -> int:
     step_ms = cuda_ms(lambda: gbp._accel_step(st, snap, avg, graph_v, cfg_u,
                                               degs), 5)
     means_ms = cuda_ms(lambda: gbp._sanitized_means(st, cfg_u), TIMED_SWEEPS)
-    print(f"[venice] accelerator: one step {step_ms:.4f} ms, the means a "
-          f"chunk averages {means_ms:.4f} ms per sweep ({card})")
+    step_busy = busy_ms(lambda: gbp._accel_step(st, snap, avg, graph_v, cfg_u,
+                                                degs), 3)
+    print(f"[venice] accelerator: one step {step_ms:.4f} ms (device busy "
+          f"{step_busy:.4f} ms of it, profiler), the means a chunk averages "
+          f"{means_ms:.4f} ms per sweep ({card})")
     del st
+    # H8 as the accelerator step calls it (the current means and a
+    # candidate), the cameras in no order
+    two = [(cam_mu, lmk_mu), (cam_mu + 1e-4, lmk_mu)]
+    got = cost_kernel.cost_sums(s, graph_v, two, cfg_u.huber_nstds)
+    want = cost_kernel.cost_sums(s, graph_v, two, cfg_u.huber_nstds,
+                                 reference=True)
+    rel = ((got - want).abs() / want.abs()).max().item()
+    again = torch.equal(got, cost_kernel.cost_sums(s, graph_v, two,
+                                                   cfg_u.huber_nstds))
+    h8_v = cuda_ms(lambda: cost_kernel.cost_sums(s, graph_v, two,
+                                                 cfg_u.huber_nstds),
+                   TIMED_SWEEPS)
+    b, by = least_ms(cost_bytes(graph_v, 2, None), (0, 0))
+    print(f"[H8] Venice (cameras shuffled), K=2: max relative to the sum of "
+          f"|loss| {rel:.3e} (bound {COST_RTOL:g}); bit-identical on rerun: "
+          f"{again}; kernel {h8_v:.4f} ms, bytes bound {b:.4f} ms "
+          f"({b / h8_v:.0%} of it reached) at {e_v} padded edges ({card})")
+    check(again and rel <= COST_RTOL, "H8 at the Venice shape differs")
 
     # phase 11 polishes the means phase 6 left; the Venice state and graph
     # are freed before the Ladybug phases
     venice_means = analysis.belief_means(s)
     del s, graph_v, degs, cam_mu, lmk_mu, snap, avg
     torch.cuda.empty_cache()
-    launches_c, h3_group_err, coarse_err = coarse_phase(
+    launches_c, h3_group_err, coarse_err, chunk = coarse_phase(
         prob_l, dev, reset_counts, read_counts, card)
     h3_err = max(h3_err, h3_group_err)
+    times.update(chunk[0])
+    yard.update(chunk[1])
     work = tempfile.TemporaryDirectory()     # phase 10's BAL file
     launches_d, bal = driver_phase(raw_l, dev, reset_counts, read_counts,
                                    card, work.name)
@@ -3074,6 +3394,10 @@ def main() -> int:
                    "gbp_poplar_tpu/ops/reduce_kernel.py:439", h5_err),
         "diag": ("gbp_poplar_tpu_torch/csrc/diag.cu",
                  "gbp_poplar_tpu/core/gbp.py:1027", h6_err),
+        "coarse": ("gbp_poplar_tpu_torch/csrc/coarse.cu",
+                   "gbp_poplar_tpu/core/coarse.py:86", chunk[2]["coarse"]),
+        "cost": ("gbp_poplar_tpu_torch/csrc/cost.cu",
+                 "gbp_poplar_tpu/core/gbp.py:1094", chunk[2]["cost"]),
     }
     launches = {k: sum(run[k] for run in (launches_l, launches_v, launches_c,
                                           launches_d, launches_lm,

@@ -5,16 +5,21 @@ docstring gives the reasoning). Keyframes are split into ``coarse_groups``
 contiguous groups and every landmark joins the group of its first
 observing keyframe; group g spans 6 directions, the rigid motion of its
 world content. The reduced 6G x 6G Gauss-Newton system (Huber-IRLS
-weights, the current annealed priors) is assembled from per-edge [E, 2, 6]
+weights, the current annealed priors) is assembled from per-edge [2, 6]
 reduced Jacobians and solved with one Cholesky factorisation; the increment
 vanishes at the MAP fixed point. ``core/gbp._coarse_step`` applies it on
 the message state, accepted only where the MAP cost falls.
 
-The per-group sums go through the deterministic segmented sum (H3,
-ops/reduce_kernel.segment_sum) over segments keyed by the edges' groups,
-built once per graph (``group_segments``): the accept decision downstream
-is a float32 cost comparison, and a sum in run-dependent order (atomics)
-would make it, and a resumed solve, change from run to run.
+Each edge's terms of the system (its reduced Jacobians' Huber-weighted
+products) come from H7 (ops/coarse_kernel.coarse_edge_blocks) as planes
+[90, n_real], and the per-group sums of those planes go through the
+deterministic segmented sum (H3, ops/reduce_kernel.segment_sum) over
+segments keyed by the edges' groups, built once per graph
+(``group_segments``): the accept decision downstream is a float32 cost
+comparison, and a sum in run-dependent order (atomics) would make it, and
+a resumed solve, change from run to run. The prior terms (batched
+products over the C cameras and L landmarks), the 6G x 6G Cholesky and the
+all-reduces are plain PyTorch.
 """
 
 from __future__ import annotations
@@ -24,7 +29,9 @@ import dataclasses
 import torch
 
 from ..config import GBPConfig
-from ..ops import lie, projection, reduce_kernel
+from ..ops import coarse_kernel, lie, reduce_kernel
+from ..ops import projection  # noqa: F401  (tests read coarse.projection)
+from ..ops.coarse_kernel import lmk_rigid_basis as _lmk_rigid_basis
 from ..ops import planes as pl
 from . import comm
 from .factor_graph import GBPGraph, GBPState, Segments, build_segments
@@ -101,15 +108,20 @@ def _cam_rigid_basis(cam_mu: torch.Tensor) -> torch.Tensor:
         cam_mu.dtype)
 
 
-def _lmk_rigid_basis(lmk_mu: torch.Tensor) -> torch.Tensor:
-    """[L, 3, 6]: dy/dxi for y -> y + xi_t + xi_w x y, i.e. [I3 | -hat(y)]."""
-    eye = torch.eye(3, dtype=lmk_mu.dtype,
-                    device=lmk_mu.device).expand(lmk_mu.shape[0], 3, 3)
-    return torch.cat([eye, -lie.so3_hat(lmk_mu)], dim=-1)
-
-
 def _fin(x: torch.Tensor) -> torch.Tensor:
     return torch.where(torch.isfinite(x), x, 0.0)
+
+
+def lmk_prior_terms(state: GBPState, lmkr: torch.Tensor,
+                    s_lmk: torch.Tensor):
+    """The landmark priors' curvature S^T Lam S [L, 6, 6] and gradient S^T
+    (eta - Lam y) [L, 6] in the rigid basis ``s_lmk`` [L, 3, 6] at the
+    sanitised means ``lmkr`` [L, 3]: batched products over the L
+    landmarks."""
+    lam_l = pl.unpack_sym_dense(state.lmk_prior_lam, 3)         # [L,3,3]
+    grad_l = state.lmk_prior_eta.T - (lam_l @ lmkr[..., None])[..., 0]
+    s_lmkt = s_lmk.transpose(-1, -2)
+    return s_lmkt @ (lam_l @ s_lmk), (s_lmkt @ grad_l[..., None])[..., 0]
 
 
 def coarse_increment(state: GBPState, graph: GBPGraph, cfg: GBPConfig,
@@ -130,48 +142,26 @@ def coarse_increment(state: GBPState, graph: GBPGraph, cfg: GBPConfig,
     s_cam = _fin(_cam_rigid_basis(camr))              # [C, 6, 6]
     s_lmk = _lmk_rigid_basis(lmkr)                    # [L, 3, 6]
 
-    # --- per-edge reduced Jacobians and residuals (Huber-IRLS weights) ---
-    ci, li = graph.cam_idx, graph.lmk_idx
-    cam_e = camr.index_select(0, ci)                  # [E, 6]
-    lmk_e = lmkr.index_select(0, li)                  # [E, 3]
-    intr_e = None if graph.intr is None else graph.intr.T
-    j_c, j_l = projection.reproj_jacobians(cam_e, lmk_e, graph.k, intr_e)
-    r = graph.meas.T - projection.project(cam_e, lmk_e, graph.k, intr_e)
-    err = torch.sqrt(torch.sum(r * r, dim=-1))
-    var, _ = projection.huber_meas_var(err, graph.meas_var, cfg.huber_nstds)
-    # an edge whose landmark grazes the camera plane (Jacobian ~ f/z
-    # explodes) is dropped on its own, so it cannot poison the assembled
-    # solve and have the guard below zero the whole correction
-    z_cf = lie.w2c_apply(cam_e, lmk_e)[..., 2]
-    act = ((state.active > 0) & torch.isfinite(r).all(dim=-1)
-           & (torch.abs(z_cf) > cfg.min_depth)
-           & torch.isfinite(j_c).all(dim=-1).all(dim=-1)
-           & torch.isfinite(j_l).all(dim=-1).all(dim=-1))
-    w = torch.where(act, 1.0 / var, 0.0)[:, None, None]           # [E,1,1]
-    r = torch.where(act[:, None], r, 0.0)
-    m = act[:, None, None]
-    b_c = torch.where(m, j_c @ s_cam.index_select(0, ci), 0.0)    # [E,2,6]
-    b_l = torch.where(m, j_l @ s_lmk.index_select(0, li), 0.0)    # [E,2,6]
-    b_ct, b_lt = b_c.transpose(-1, -2), b_l.transpose(-1, -2)
-
-    # block contributions; a finite but huge Jacobian can still overflow a
-    # product, so each edge's terms are sanitised on their own
-    aa = _fin(b_ct @ b_c * w)
-    bb = _fin(b_lt @ b_l * w)
-    ab = _fin(b_ct @ b_l * w)
-    rc = _fin((b_ct @ r[..., None])[..., 0] * w[..., 0])
-    rl = _fin((b_lt @ r[..., None])[..., 0] * w[..., 0])
+    # --- per-edge reduced system blocks (H7), summed per group (H3) ---
+    planes = coarse_kernel.coarse_edge_blocks(cam_mu, lmk_mu, s_cam, state,
+                                              graph, cfg, reference=ref)
+    rows = coarse_kernel.ROWS
+    by_cam = reduce_kernel.segment_sum(planes[rows["cam"]], segs.edge_cam,
+                                       reference=ref)          # [27, G]
+    by_lmk = reduce_kernel.segment_sum(planes[rows["lmk"]], segs.edge_lmk,
+                                       reference=ref)          # [27, G]
+    by_pair = reduce_kernel.segment_sum(planes[rows["pair"]],
+                                        segs.edge_pair, reference=ref)
 
     diag = torch.arange(g, device=camr.device)
     a = torch.zeros((g, g, RIGID_DOF, RIGID_DOF), dtype=camr.dtype,
                     device=camr.device)
-    a[diag, diag] += _group_sum(aa, segs.edge_cam, ref)
-    a[diag, diag] += _group_sum(bb, segs.edge_lmk, ref)
-    a_ab = _group_sum(ab, segs.edge_pair, ref).reshape(g, g, 6, 6)
+    a[diag, diag] += pl.unpack_sym_dense(by_cam[:21], RIGID_DOF)
+    a[diag, diag] += pl.unpack_sym_dense(by_lmk[:21], RIGID_DOF)
+    a_ab = by_pair.T.reshape(g, g, 6, 6)
     a = a + a_ab
     a = a + a_ab.permute(1, 0, 3, 2)        # block (gb, ga) gets ab^T
-    rhs = (_group_sum(rc, segs.edge_cam, ref)
-           + _group_sum(rl, segs.edge_lmk, ref))                   # [G, 6]
+    rhs = by_cam[21:].T + by_lmk[21:].T                        # [G, 6]
     if group is not None:
         a, rhs = comm.all_sum(group, [a, rhs])
 
@@ -181,11 +171,7 @@ def coarse_increment(state: GBPState, graph: GBPGraph, cfg: GBPConfig,
     s_camt = s_cam.transpose(-1, -2)
     pa_c = s_camt @ (lam_c @ s_cam)
     pb_c = (s_camt @ grad_c[..., None])[..., 0]
-    lam_l = pl.unpack_sym_dense(state.lmk_prior_lam, 3)         # [L,3,3]
-    grad_l = state.lmk_prior_eta.T - (lam_l @ lmkr[..., None])[..., 0]
-    s_lmkt = s_lmk.transpose(-1, -2)
-    pa_l = s_lmkt @ (lam_l @ s_lmk)
-    pb_l = (s_lmkt @ grad_l[..., None])[..., 0]
+    pa_l, pb_l = lmk_prior_terms(state, lmkr, s_lmk)
     a_p = torch.zeros_like(a)
     a_p[diag, diag] = _group_sum(pa_c, segs.cam, ref)
     a = a + a_p

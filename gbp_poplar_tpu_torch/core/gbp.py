@@ -32,6 +32,10 @@ their plain PyTorch versions, chosen by the tensors' device and
        fused sweep of the same run reads those tables in place of building
        its own.
 
+At a chunk boundary the accelerator and coarse steps (below) price their
+candidate means with H8 (ops/cost_kernel) and the coarse step builds its
+system's per-edge terms with H7 (ops/coarse_kernel, core/coarse.py).
+
 Around the solve: ``recenter_priors`` and ``weaken_priors`` edit the
 priors, and ``reprojection_error`` / ``map_cost`` take an optional mask of
 known-bad associations (``factor_graph.bad_edge_mask``).
@@ -55,7 +59,8 @@ import torch
 
 from ..config import GBPConfig
 from ..ops import planes as pl
-from ..ops import diag_kernel, reduce_kernel, sweep_kernel, table_kernel
+from ..ops import (cost_kernel, diag_kernel, reduce_kernel, sweep_kernel,
+                   table_kernel)
 from . import coarse, comm
 from .factor_graph import (CAM_DOF, LMK_DOF, MSG_CAM_ROWS, MSG_LMK_ROWS,
                            GBPGraph, GBPState)
@@ -540,8 +545,11 @@ def iteration(state: GBPState, graph: GBPGraph, cfg: GBPConfig,
 # ``lmk_sharded``); the camera means it extrapolates are whole on every
 # rank in both sharding modes, so its rate estimate needs none. Every decision
 # (alignment, trust region, cost guard) is a torch.where on the device, so
-# a chunk boundary adds no host synchronisation. The per-edge gathers stay
-# plain index_select, as the JAX package keeps jnp.take there.
+# a chunk boundary adds no host synchronisation. The candidates' data terms
+# are priced by H8 (ops/cost_kernel.cost_sums), all K sets in one launch
+# that reads each set's means per edge; the message shares ``_apply_shift``
+# adds stay a plain index_select per kind, as the JAX package keeps
+# jnp.take there.
 
 class CoarseStep(NamedTuple):
     """What one ``_coarse_step`` decided (device tensors)."""
@@ -578,29 +586,37 @@ def _prior_quad(lam_planes, eta_planes, mu_planes, d):
     return torch.sum(torch.where(torch.isfinite(val), val, 0.0))
 
 
-def _cost_parts(state: GBPState, graph: GBPGraph, cfg: GBPConfig,
-                mu_c_e, mu_l_e, cam_mu, lmk_mu, bad=None):
-    """(robust data term, cam prior quad, lmk prior quad) of the MAP
-    objective at the given means, the per-edge means already gathered;
-    edges in ``bad`` add no data term."""
-    (u, v), _, _ = pl.project(
-        pl.unpack_vec(mu_c_e, 6), pl.unpack_vec(mu_l_e, 3), graph.k,
-        None if graph.intr is None else pl.unpack_vec(graph.intr, 3))
-    ru = graph.meas[0] - u
-    rv = graph.meas[1] - v
-    err2 = (ru * ru + rv * rv) / graph.meas_var
-    err = torch.sqrt(err2)
-    k = cfg.huber_nstds
-    loss = torch.where(err > k, k * err - 0.5 * k * k, 0.5 * err2)
-    ok = (state.active > 0) & torch.isfinite(loss)
-    if bad is not None:
-        ok = ok & ~bad
-    robust = torch.sum(torch.where(ok, loss, 0.0))
-    cam_prior = _prior_quad(state.cam_prior_lam, state.cam_prior_eta,
-                            cam_mu, 6)
-    lmk_prior = _prior_quad(state.lmk_prior_lam, state.lmk_prior_eta,
-                            lmk_mu, 3)
+def _cost_parts(state: GBPState, graph: GBPGraph, cfg: GBPConfig, means,
+                bad=None):
+    """(robust data terms [K], cam prior quads [K], lmk prior quads [K]) of
+    the MAP objective at the K <= 3 sets of ``means`` (pairs of belief-mean
+    planes [6, C], [3, L]); the data terms by one launch of H8 on a card
+    (its plain version on the CPU or with ``kernels="reference"``); edges
+    in ``bad`` add no data term."""
+    robust = cost_kernel.cost_sums(state, graph, means, cfg.huber_nstds, bad,
+                                   reference=cfg.kernels == "reference")
+    cam_prior = torch.stack([_prior_quad(state.cam_prior_lam,
+                                         state.cam_prior_eta, c, 6)
+                             for c, _ in means])
+    lmk_prior = torch.stack([_prior_quad(state.lmk_prior_lam,
+                                         state.lmk_prior_eta, l, 3)
+                             for _, l in means])
     return robust, cam_prior, lmk_prior
+
+
+def _combine_costs(parts, group=None, lmk_sharded: bool = False):
+    """Total ``_cost_parts``' (robust, cam_prior, lmk_prior) into a cost
+    vector [K]; with ``group`` the edge terms of every set (and their
+    landmark prior terms with ``lmk_sharded``) are summed over the ranks in
+    one collective (the camera priors are whole on every rank)."""
+    robust, cam_prior, lmk_prior = parts
+    if group is not None:
+        if lmk_sharded:
+            robust, lmk_prior = comm.all_sum(group, [robust, lmk_prior],
+                                             torch.float64)
+        else:
+            robust = comm.all_sum(group, [robust], torch.float64)[0]
+    return robust + cam_prior + lmk_prior
 
 
 def map_cost(state: GBPState, graph: GBPGraph, cfg: GBPConfig,
@@ -613,26 +629,8 @@ def map_cost(state: GBPState, graph: GBPGraph, cfg: GBPConfig,
     ``group`` the data term is summed over the ranks (and the landmark
     prior term too with ``lmk_sharded``; the camera priors are whole on
     every rank)."""
-    cam_mu, lmk_mu = _variable_means(state)
-    mu_c = cam_mu.index_select(1, graph.cam_idx)
-    mu_l = lmk_mu.index_select(1, graph.lmk_idx)
-    robust, cam_prior, lmk_prior = _cost_parts(
-        state, graph, cfg, mu_c, mu_l, cam_mu, lmk_mu, bad)
-    robust, lmk_prior = _ranks_terms(robust, lmk_prior, group, lmk_sharded)
-    return robust + cam_prior + lmk_prior
-
-
-def _ranks_terms(robust, lmk_prior, group, lmk_sharded: bool):
-    """Cost terms summed over the ranks of ``group`` in one collective:
-    the edges' (``robust``) always, the landmark priors' only with
-    ``lmk_sharded`` (the camera priors are whole on every rank)."""
-    if group is None:
-        return robust, lmk_prior
-    if lmk_sharded:
-        robust, lmk_prior = comm.all_sum(group, [robust, lmk_prior],
-                                         torch.float64)
-        return robust, lmk_prior
-    return comm.all_sum(group, [robust], torch.float64)[0], lmk_prior
+    parts = _cost_parts(state, graph, cfg, [_variable_means(state)], bad)
+    return _combine_costs(parts, group, lmk_sharded)[0]
 
 
 def _active_degrees(state: GBPState, graph: GBPGraph, cfg: GBPConfig,
@@ -679,13 +677,11 @@ def _cand_means(state: GBPState, cam_deta, lmk_deta, scale: float):
     return cam, lmk
 
 
-def _shift_gather(graph: GBPGraph, cam_groups, lmk_groups):
-    """One stacked gather per variable kind of the planes a shift trial
-    needs per edge (current and candidate means, message shares)."""
-    gc = torch.cat(cam_groups).index_select(1, graph.cam_idx)
-    gl = torch.cat(lmk_groups).index_select(1, graph.lmk_idx)
-    return (gc.split([g.shape[0] for g in cam_groups]),
-            gl.split([g.shape[0] for g in lmk_groups]))
+def _shift_gather(graph: GBPGraph, dmsg_c, dmsg_l):
+    """The per-message eta shares gathered to the edges, as ``_apply_shift``
+    adds them: [6, E] and [3, E]."""
+    return (dmsg_c.index_select(1, graph.cam_idx),
+            dmsg_l.index_select(1, graph.lmk_idx))
 
 
 def _msg_shares(cam_deta, lmk_deta, degs):
@@ -714,18 +710,6 @@ def _apply_shift(state: GBPState, dmsg_c, dmsg_l, cam_deta, lmk_deta,
     state.cam_bel = torch.cat([upd(state.cam_eta, cam_deta), state.cam_lam])
     state.lmk_bel = torch.cat([upd(state.lmk_eta, lmk_deta), state.lmk_lam])
     return state
-
-
-def _combine_costs(parts, group=None, lmk_sharded: bool = False):
-    """Total each (robust, cam_prior, lmk_prior) triple into a cost vector;
-    with ``group`` the edge terms of every candidate (and their landmark
-    prior terms with ``lmk_sharded``) are summed over the ranks in one
-    collective."""
-    robust = torch.stack([p[0] for p in parts])
-    cam_prior = torch.stack([p[1] for p in parts])
-    lmk_prior = torch.stack([p[2] for p in parts])
-    robust, lmk_prior = _ranks_terms(robust, lmk_prior, group, lmk_sharded)
-    return robust + cam_prior + lmk_prior
 
 
 def _accel_step(state: GBPState, snap, avg, graph: GBPGraph,
@@ -774,16 +758,13 @@ def _accel_step(state: GBPState, snap, avg, graph: GBPGraph,
                                           degs)
     dmsg_c, dmsg_l = _msg_shares(cam_deta, lmk_deta, degs)
     cam_mu, lmk_mu = _variable_means(state)
-    cand_c, cand_l = _cand_means(state, cam_deta, lmk_deta, 1.0)
-    cg, lg = _shift_gather(graph, [cam_mu, cand_c, dmsg_c],
-                           [lmk_mu, cand_l, dmsg_l])
+    cand = _cand_means(state, cam_deta, lmk_deta, 1.0)
     cost_cur, cost_cand = _combine_costs(
-        [_cost_parts(state, graph, cfg, cg[0], lg[0], cam_mu, lmk_mu),
-         _cost_parts(state, graph, cfg, cg[1], lg[1], cand_c, cand_l)],
-        group, lmk_sharded)
+        _cost_parts(state, graph, cfg, [(cam_mu, lmk_mu), cand]), group,
+        lmk_sharded)
     better = cost_cand <= cost_cur
-    state = _apply_shift(state, cg[2], lg[2], cam_deta, lmk_deta,
-                         better.to(cam_mu.dtype))
+    state = _apply_shift(state, *_shift_gather(graph, dmsg_c, dmsg_l),
+                         cam_deta, lmk_deta, better.to(cam_mu.dtype))
 
     # the next chunk's displacement is measured from the accepted state's
     # frame: shift the stored averages by the applied jump
@@ -800,8 +781,8 @@ def _coarse_step(state: GBPState, graph: GBPGraph, cfg: GBPConfig, degs,
     the per-group rigid subspace and apply it at scale 1 or 0.3, whichever
     lowers the MAP cost most below ``cost`` (the caller's cost of
     ``state``, ``AccelStep.cost_kept``; computed here when None), or not
-    at all. Both scales are priced at their exact means from one stacked
-    gather and the chosen one is applied once (``_apply_shift``). Returns
+    at all. Both scales are priced at their exact means in one H8 launch
+    and the chosen one is applied once (``_apply_shift``). Returns
     (state, CoarseStep)."""
     cam_mu, lmk_mu = _variable_means(state)
     d_cam, d_lmk = coarse.coarse_increment(state, graph, cfg, cam_mu, lmk_mu,
@@ -810,19 +791,10 @@ def _coarse_step(state: GBPState, graph: GBPGraph, cfg: GBPConfig, degs,
     dmsg_c, dmsg_l = _msg_shares(cam_deta, lmk_deta, degs)
     scales = (1.0, 0.3)
     cands = [_cand_means(state, cam_deta, lmk_deta, s) for s in scales]
-    # gather the current means only when the caller did not price them
-    mu_groups = int(cost is None)
-    cg, lg = _shift_gather(
-        graph, [cam_mu] * mu_groups + [c for c, _ in cands] + [dmsg_c],
-        [lmk_mu] * mu_groups + [l for _, l in cands] + [dmsg_l])
-    parts = []
-    if cost is None:
-        parts.append(_cost_parts(state, graph, cfg, cg[0], lg[0],
-                                 cam_mu, lmk_mu))
-    for i, (cand_c, cand_l) in enumerate(cands):
-        parts.append(_cost_parts(state, graph, cfg, cg[mu_groups + i],
-                                 lg[mu_groups + i], cand_c, cand_l))
-    costs = _combine_costs(parts, group, lmk_sharded)
+    # price the current means only when the caller did not
+    means = ([(cam_mu, lmk_mu)] if cost is None else []) + cands
+    costs = _combine_costs(_cost_parts(state, graph, cfg, means), group,
+                           lmk_sharded)
     if cost is None:
         cost, costs = costs[0], costs[1:]
     best = cost
@@ -831,7 +803,8 @@ def _coarse_step(state: GBPState, graph: GBPGraph, cfg: GBPConfig, degs,
         better = c < best
         gain = torch.where(better, s, gain)
         best = torch.where(better, c, best)
-    state = _apply_shift(state, cg[-1], lg[-1], cam_deta, lmk_deta, gain)
+    state = _apply_shift(state, *_shift_gather(graph, dmsg_c, dmsg_l),
+                         cam_deta, lmk_deta, gain)
     return state, CoarseStep(gain, cost, costs)
 
 

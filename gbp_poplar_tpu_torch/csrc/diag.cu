@@ -36,12 +36,11 @@
 // on an H100, 375 device launches).
 #include <cuda_runtime.h>
 
+#include "block_sums.cuh"
 #include "diag.cuh"
 
 namespace gbp {
 namespace {
-
-constexpr unsigned FULL_WARP = 0xffffffffu;
 
 // diag.cuh's PerEdgeRotations shared across a warp: where the warp's
 // edges (32 lanes x DIAG_EDGES_PER_THREAD) have at most 32 distinct
@@ -91,33 +90,6 @@ struct WarpRotations {
   }
 };
 
-// The block's sums into thread 0's ``acc``: each warp's lanes by the fixed
-// tree (lane l adds lane l + h, h = 16 ... 1; lane 0 ends with the warp's
-// sum), then the warps in ascending order. ``warp`` is the block's shared
-// [DIAG_WARPS][DIAG_SUMS]; every thread of the block must call this.
-__device__ __forceinline__ void block_sums(double acc[DIAG_SUMS],
-                                           double (*warp)[DIAG_SUMS]) {
-#pragma unroll
-  for (int h = 16; h > 0; h >>= 1)
-#pragma unroll
-    for (int k = 0; k < DIAG_SUMS; ++k)
-      acc[k] = acc[k] + __shfl_down_sync(FULL_WARP, acc[k], h);
-  if ((threadIdx.x & 31) == 0)
-#pragma unroll
-    for (int k = 0; k < DIAG_SUMS; ++k) warp[threadIdx.x >> 5][k] = acc[k];
-  __syncthreads();
-  if (threadIdx.x == 0) diag_fold_warps(warp, acc);
-}
-
-// The partials read from L2, past the SM's cache, where the other blocks'
-// writes are.
-struct L2Reads {
-  const double* p;
-  __device__ __forceinline__ double operator[](long long i) const {
-    return __ldcg(p + i);
-  }
-};
-
 }  // namespace
 
 __global__ void __launch_bounds__(DIAG_THREADS)
@@ -129,19 +101,10 @@ diag_sums(const DiagArgs a, double* partial, unsigned* ticket,
   double acc[DIAG_SUMS];
   diag_thread_edges(a, blockIdx.x, threadIdx.x, acc,
                     WarpRotations{cams[threadIdx.x >> 5]});
-  block_sums(acc, warp);
-  if (threadIdx.x == 0) {
-#pragma unroll
-    for (int k = 0; k < DIAG_SUMS; ++k)
-      partial[(long long)k * gridDim.x + blockIdx.x] = acc[k];
-    __threadfence();          // the partial is visible before the ticket
-    last = atomicInc(ticket, gridDim.x - 1) == gridDim.x - 1;
-  }
-  __syncthreads();
-  if (!last) return;
-  __threadfence();            // every other block's partial is visible
-  diag_thread_partials(L2Reads{partial}, gridDim.x, threadIdx.x, acc);
-  block_sums(acc, warp);
+  block_sums<DIAG_SUMS>(acc, warp);
+  if (!last_block<DIAG_SUMS>(acc, partial, ticket, &last)) return;
+  thread_partials<DIAG_SUMS>(L2Reads{partial}, gridDim.x, threadIdx.x, acc);
+  block_sums<DIAG_SUMS>(acc, warp);
   if (threadIdx.x == 0) diag_finish(acc, out);
 }
 

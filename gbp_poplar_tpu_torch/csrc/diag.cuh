@@ -1,7 +1,7 @@
 // The per-sweep telemetry (H6): one edge's reprojection residual and flags
 // (diag_edge), a thread's edges (diag_thread_edges), the fold of a block's
-// warps (diag_fold_warps), the last block's walk over the partials
-// (diag_thread_partials) and the result (diag_finish), as plain functions
+// warps (fold_warps), the last block's walk over the partials
+// (thread_partials) and the result (diag_finish), as plain functions
 // on scalars with no device intrinsics, so that the host build of
 // tests/test_torch_kernel_math.py runs the same bodies. The warp shuffles
 // and the ticket that picks the last block are csrc/diag.cu's; the test
@@ -154,11 +154,13 @@ __device__ __forceinline__ void diag_thread_edges(const DiagArgs& a,
   }
 }
 
-// A block's sums from its warps' (``warp`` [DIAG_WARPS][DIAG_SUMS], each
-// its lane tree's lane 0), added in ascending warp order.
-__device__ __forceinline__ void diag_fold_warps(
-    const double (*warp)[DIAG_SUMS], double acc[DIAG_SUMS]) {
-  for (int k = 0; k < DIAG_SUMS; ++k) {
+// A block's N sums from its warps' (``warp`` [DIAG_WARPS][N], each its
+// lane tree's lane 0), added in ascending warp order. H6 and the cost sums
+// (cost.cuh, H8) fold their blocks here.
+template <int N>
+__device__ __forceinline__ void fold_warps(const double (*warp)[N],
+                                           double acc[N]) {
+  for (int k = 0; k < N; ++k) {
     double s = warp[0][k];
     for (int w = 1; w < DIAG_WARPS; ++w) s = s + warp[w][k];
     acc[k] = s;
@@ -166,16 +168,14 @@ __device__ __forceinline__ void diag_fold_warps(
 }
 
 // The last block's thread t: the partials of blocks t, t + DIAG_THREADS,
-// ... in ascending order (``partial`` is [DIAG_SUMS][n_blocks]; P reads
-// past the SM's cache on the card).
-template <class P>
-__device__ __forceinline__ void diag_thread_partials(P partial,
-                                                     long long n_blocks,
-                                                     int t,
-                                                     double acc[DIAG_SUMS]) {
-  for (int k = 0; k < DIAG_SUMS; ++k) acc[k] = 0.0;
+// ... in ascending order (``partial`` is [N][n_blocks]; P reads past the
+// SM's cache on the card).
+template <int N, class P>
+__device__ __forceinline__ void thread_partials(P partial, long long n_blocks,
+                                                int t, double acc[N]) {
+  for (int k = 0; k < N; ++k) acc[k] = 0.0;
   for (long long b = t; b < n_blocks; b += DIAG_THREADS)
-    for (int k = 0; k < DIAG_SUMS; ++k)
+    for (int k = 0; k < N; ++k)
       acc[k] = acc[k] + partial[k * n_blocks + b];
 }
 

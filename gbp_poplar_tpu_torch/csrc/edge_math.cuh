@@ -66,76 +66,12 @@ __device__ __forceinline__ void linearise(const SweepParams& p,
                                           float meas_v, float meas_var,
                                           const float intr[3],
                                           Potential& out) {
-  const float zero = 0.0f;
   const bool has_intr = p.flags & F_HAS_INTR;
   float r[3][3], y_cf[3], u, v;
   project(cam, lmk, p.fx, p.fy, p.cx, p.cy, has_intr, intr, r, y_cf, u, v);
-  const float inv_z = 1.0f / y_cf[2];
-  const float inv_z2 = inv_z * inv_z;
-  float j_proj[2][3];
-  if (!has_intr) {
-    j_proj[0][0] = p.fx * inv_z;
-    j_proj[0][1] = zero;
-    j_proj[0][2] = -p.fx * y_cf[0] * inv_z2;
-    j_proj[1][0] = zero;
-    j_proj[1][1] = p.fy * inv_z;
-    j_proj[1][2] = -p.fy * y_cf[1] * inv_z2;
-  } else {
-    const float f = intr[0], d1 = intr[1], d2 = intr[2];
-    const float px = -y_cf[0] * inv_z;
-    const float py = -y_cf[1] * inv_z;
-    const float rho = px * px + py * py;
-    const float dist = 1.0f + rho * (d1 + d2 * rho);
-    const float g = d1 + 2.0f * d2 * rho;
-    const float dpx[3] = {-inv_z, zero, y_cf[0] * inv_z2};
-    const float dpy[3] = {zero, -inv_z, y_cf[1] * inv_z2};
-#pragma unroll
-    for (int i = 0; i < 3; ++i) {
-      const float drho = 2.0f * (px * dpx[i] + py * dpy[i]);
-      j_proj[0][i] = f * (dist * dpx[i] + px * g * drho);
-      j_proj[1][i] = f * (dist * dpy[i] + py * g * drho);
-    }
-  }
-  // landmark block: J_proj @ R
-  float j_lmk[2][3];
-  matmul<2, 3, 3>(j_proj, r, j_lmk);
-  // rotation block: dRy/dw = -R hat(y) ((R^T - I) hat(w) + w w^T) / |w|^2,
-  // with the exact w -> 0 limit -hat(y)
-  const float* w = cam + 3;
-  const float theta_sq = w[0] * w[0] + w[1] * w[1] + w[2] * w[2];
-  const bool small = theta_sq < 1e-12f;
-  const float denom = small ? 1.0f : theta_sq;
-  float w_hat[3][3], y_hat[3][3], rt_minus_i[3][3];
-  hat(w, w_hat);
-  hat(lmk, y_hat);
-#pragma unroll
-  for (int i = 0; i < 3; ++i)
-#pragma unroll
-    for (int j = 0; j < 3; ++j)
-      rt_minus_i[i][j] = r[j][i] - (i == j ? 1.0f : zero);
-  float numer[3][3], r_yhat[3][3], d_full[3][3], d_ry_dw[3][3];
-  matmul<3, 3, 3>(rt_minus_i, w_hat, numer);
-#pragma unroll
-  for (int i = 0; i < 3; ++i)
-#pragma unroll
-    for (int j = 0; j < 3; ++j) numer[i][j] = numer[i][j] + w[i] * w[j];
-  matmul<3, 3, 3>(r, y_hat, r_yhat);
-  matmul<3, 3, 3>(r_yhat, numer, d_full);
-#pragma unroll
-  for (int i = 0; i < 3; ++i)
-#pragma unroll
-    for (int j = 0; j < 3; ++j)
-      d_ry_dw[i][j] = small ? -y_hat[i][j] : -d_full[i][j] / denom;
-  float j_rot[2][3];
-  matmul<2, 3, 3>(j_proj, d_ry_dw, j_rot);
-  float j_kf[2][6];
-#pragma unroll
-  for (int a = 0; a < 2; ++a)
-#pragma unroll
-    for (int i = 0; i < 3; ++i) {
-      j_kf[a][i] = j_proj[a][i];
-      j_kf[a][3 + i] = j_rot[a][i];
-    }
+  float j_kf[2][6], j_lmk[2][3];
+  reproj_jacobians(r, y_cf, cam, lmk, p.fx, p.fy, has_intr, intr, j_kf,
+                   j_lmk);
   // residual-side vector b = J x0 + z - h(x0)
   float jx0[2];
 #pragma unroll

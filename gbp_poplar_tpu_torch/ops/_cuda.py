@@ -118,10 +118,13 @@ def library() -> ctypes.CDLL:
     lib.gbp_diag_blocks.argtypes = [ll]
     lib.gbp_diag_blocks.restype = ll
     lib.gbp_diag_launch.argtypes = [p] * 5
+    lib.gbp_coarse_launch.argtypes = [p] * 2
+    lib.gbp_cost_launch.argtypes = [p] * 5
     for fn in (lib.gbp_tables_launch, lib.gbp_reduce_launch,
                lib.gbp_reduce_chunks_launch, lib.gbp_sweep_launch,
                lib.gbp_sweep_planes_launch, lib.gbp_gather_launch,
-               lib.gbp_diag_launch):
+               lib.gbp_diag_launch, lib.gbp_coarse_launch,
+               lib.gbp_cost_launch):
         fn.restype = i
     _lib = lib
     return lib
@@ -148,3 +151,55 @@ def sweep_config() -> tuple[int, int, int, int]:
     vals = [ctypes.c_int() for _ in range(4)]
     library().gbp_sweep_config(*(ctypes.byref(v) for v in vals))
     return tuple(v.value for v in vals)
+
+
+def check_tensor(fn: str, what: str, t, shape, dtype, device) -> None:
+    """Raise unless ``t`` is a contiguous ``dtype`` tensor of ``shape`` on
+    ``device``: what a kernel's wrapper hands it as a raw pointer."""
+    if (tuple(t.shape) != tuple(shape) or t.dtype != dtype
+            or not t.is_contiguous() or t.device != device):
+        raise ValueError(f"{fn}: {what} must be contiguous {dtype} "
+                         f"{tuple(shape)} on {device}, got {t.dtype} "
+                         f"{tuple(t.shape)} on {t.device}")
+
+
+def operand(fn: str, what: str, t, shape, dtype, device):
+    """``t`` as a kernel takes it by raw pointer: a strided view (a
+    transpose, a column slice) copied to contiguous memory, a contiguous
+    tensor as it is; then checked as ``check_tensor`` checks it."""
+    t = t.contiguous()
+    check_tensor(fn, what, t, shape, dtype, device)
+    return t
+
+
+class Scratch:
+    """The scratch of the ticketed block reduction (csrc/block_sums.cuh)
+    on one device: room for the blocks' float64 partials (``sums`` x
+    ``blocks``, laid out [sums, gridDim.x] by the launch) and the ticket
+    (one 32-bit counter, zeroed once here; every launch leaves it at 0).
+    Two launches in flight at once must not share one."""
+
+    def __init__(self, device, sums: int, blocks: int):
+        self.sums, self.blocks = sums, blocks
+        self.partial = torch.empty(sums * blocks, dtype=torch.float64,
+                                   device=device)
+        self.ticket = torch.zeros(1, dtype=torch.int32, device=device)
+
+    def fits(self, sums: int, blocks: int) -> bool:
+        return self.sums >= sums and self.blocks >= blocks
+
+
+_scratch = {}
+
+
+def shared_scratch(device, stream: int, sums: int, blocks: int) -> Scratch:
+    """The one-off launches' scratch on ``device`` and ``stream``, shared by
+    H6 and H8 (launches on one stream run one after another), so that a
+    call is one launch (a fresh ticket would need zeroing first); replaced
+    by a larger one when too small."""
+    s = _scratch.get((device, stream))
+    if s is None or not s.fits(sums, blocks):
+        if s is not None:
+            sums, blocks = max(sums, s.sums), max(blocks, s.blocks)
+        s = _scratch[(device, stream)] = Scratch(device, sums, blocks)
+    return s

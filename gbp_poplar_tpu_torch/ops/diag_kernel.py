@@ -36,6 +36,7 @@ tables once).
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -105,31 +106,7 @@ def diag_args(state, graph, tables, num_undamped_iters: int,
         float(k[0][2]), float(k[1][2]), num_undamped_iters)
 
 
-def _check(what, t, shape, dtype, device) -> None:
-    if (tuple(t.shape) != shape or t.dtype != dtype or not t.is_contiguous()
-            or t.device != device):
-        raise ValueError(f"edge_sums: {what} must be contiguous {dtype} "
-                         f"{shape} on {device}, got {t.dtype} "
-                         f"{tuple(t.shape)} on {t.device}")
-
-
-class _Scratch:
-    """H6's scratch on one device: the blocks' partials (float64 [5,
-    blocks]) and the ticket (one 32-bit counter, zeroed once here; every
-    launch leaves it at 0). Two launches in flight at once must not share
-    one."""
-
-    def __init__(self, device, blocks: int):
-        self.blocks = blocks
-        self.partial = torch.empty(len(SUMS) * blocks, dtype=torch.float64,
-                                   device=device)
-        self.ticket = torch.zeros(1, dtype=torch.int32, device=device)
-
-
-# the one-off calls' scratch, one per (device, stream), so that a call is
-# one launch (a fresh ticket would need zeroing first); launches on one
-# stream run one after another
-_shared = {}
+_check = functools.partial(_cuda.check_tensor, "edge_sums")
 
 
 class DiagLaunch:
@@ -149,7 +126,8 @@ class DiagLaunch:
 
     def __init__(self, state, graph, num_undamped_iters: int,
                  out: torch.Tensor, bad: torch.Tensor | None = None,
-                 scratch: _Scratch | None = None, stream: int | None = None):
+                 scratch: _cuda.Scratch | None = None,
+                 stream: int | None = None):
         device = state.pk.device
         if device.type != "cuda":
             raise ValueError(f"edge_sums: unsupported device {device}")
@@ -194,8 +172,8 @@ class DiagLaunch:
         if self.bad is not None:
             _check("bad", self.bad, (e,), torch.bool, device)
         blocks = self._blocks(e)
-        if self.scratch is None or self.scratch.blocks < blocks:
-            self.scratch = _Scratch(device, blocks)
+        if self.scratch is None or not self.scratch.fits(len(SUMS), blocks):
+            self.scratch = _cuda.Scratch(device, len(SUMS), blocks)
         self.args = diag_args(state, g, None, self.num_undamped_iters,
                               self.bad)
         self._call = (ctypes.addressof(self.args),
@@ -251,11 +229,11 @@ def edge_sums(state, graph, num_undamped_iters: int,
     else:
         _check("out", out, (len(SUMS),), torch.float64, device)
     stream = _cuda.stream_ptr(out)
-    key = (device, stream)
-    launch = DiagLaunch(state, graph, num_undamped_iters, out, bad,
-                        _shared.get(key), stream)
-    _shared[key] = launch.scratch
-    launch._run(tables, 0)
+    scratch = _cuda.shared_scratch(device, stream, len(SUMS),
+                                   _cuda.library().gbp_diag_blocks(
+                                       graph.n_edges))
+    DiagLaunch(state, graph, num_undamped_iters, out, bad, scratch,
+               stream)._run(tables, 0)
     return out
 
 

@@ -6,6 +6,8 @@ reason. On the card: ``python -m pytest -m cuda tests/test_torch_cuda.py``.
 This file imports no JAX, so it runs where only the port is installed.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -13,8 +15,10 @@ import torch
 from gbp_poplar_tpu_torch import solve_ba
 from gbp_poplar_tpu_torch.config import GBPConfig
 from gbp_poplar_tpu_torch.core import factor_graph as fg
-from gbp_poplar_tpu_torch.core import gbp
-from gbp_poplar_tpu_torch.ops import (diag_kernel, reduce_kernel, sweep_kernel,
+from gbp_poplar_tpu_torch.core import coarse, gbp
+from gbp_poplar_tpu_torch.core.intrinsics import refit_intrinsics
+from gbp_poplar_tpu_torch.ops import (coarse_kernel, cost_kernel, diag_kernel,
+                                      reduce_kernel, sweep_kernel,
                                       table_kernel)
 from gbp_poplar_tpu_torch.utils import balio
 
@@ -394,6 +398,90 @@ def test_diag_kernel_matches_plain_on_card(cuda_device, name):
     assert dk.n_relins.dtype == torch.int64
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["pinhole", "snavely"])
+def test_chunk_kernels_match_plain_on_card(cuda_device, name):
+    """H7 (the coarse step's per-edge blocks) per plane within 1e-3 of the
+    plane's largest magnitude of its plain version, the same edges
+    dropped; H8 (the cost's data term) at K = 1, 2, 3 sets, with and
+    without a bad mask, within 1e-6 of the sum of |loss| of its plain
+    version; both the same bits on a second call."""
+    prob = (balio.synthetic_problem(n_keyframes=6, n_points=60, seed=0,
+                                    pixel_noise=0.5) if name == "pinhole"
+            else balio.synthetic_problem_snavely(pixel_noise=0.5))
+    cfg = GBPConfig(accel_every=0, coarse_groups=3)
+    g = fg.build_graph(prob, cfg, cuda_device)
+    s = gbp.initialise(fg.init_state(prob, cfg, cuda_device), g, cfg)
+    s, _ = gbp.run_gbp(s, g, cfg, 20, with_diagnostics=False)
+    cam_mu, lmk_mu = gbp._variable_means(s)
+    s_cam = coarse._fin(coarse._cam_rigid_basis(coarse._fin(cam_mu.T)))
+    k = coarse_kernel.coarse_edge_blocks(cam_mu, lmk_mu, s_cam, s, g, cfg)
+    r = coarse_kernel.coarse_edge_blocks(cam_mu, lmk_mu, s_cam, s, g, cfg,
+                                         reference=True)
+    assert torch.equal((k == 0).all(dim=0), (r == 0).all(dim=0))
+    scale = r.abs().amax(dim=1, keepdim=True).clamp_min(1e-30)
+    assert bool(((k - r).abs() <= 1e-3 * scale).all())
+    assert torch.equal(k, coarse_kernel.coarse_edge_blocks(
+        cam_mu, lmk_mu, s_cam, s, g, cfg))
+    rng = np.random.default_rng(0)
+    sets = [(cam_mu, lmk_mu)] + [
+        (cam_mu + torch.tensor(rng.normal(0, 1e-3, cam_mu.shape),
+                               dtype=cam_mu.dtype, device=cuda_device),
+         lmk_mu + torch.tensor(rng.normal(0, 1e-2, lmk_mu.shape),
+                               dtype=lmk_mu.dtype, device=cuda_device))
+        for _ in range(2)]
+    bad = torch.zeros(g.n_edges, dtype=torch.bool, device=cuda_device)
+    bad[::7] = True
+    for n_sets in (1, 2, 3):
+        for mask in (None, bad):
+            got = cost_kernel.cost_sums(s, g, sets[:n_sets], cfg.huber_nstds,
+                                        mask)
+            want = cost_kernel.cost_sums(s, g, sets[:n_sets],
+                                         cfg.huber_nstds, mask,
+                                         reference=True)
+            assert bool(((got - want).abs() <= 1e-6 * want.abs()).all())
+            assert torch.equal(got, cost_kernel.cost_sums(
+                s, g, sets[:n_sets], cfg.huber_nstds, mask))
+    # strided operands (a transposed basis, a column slice of the means)
+    # are the same tensors to the kernels
+    s_cam_t = s_cam.transpose(1, 2).contiguous().transpose(1, 2)
+    assert torch.equal(k, coarse_kernel.coarse_edge_blocks(
+        cam_mu.T.contiguous().T, lmk_mu, s_cam_t, s, g, cfg))
+    assert torch.equal(
+        cost_kernel.cost_sums(s, g, sets[:2], cfg.huber_nstds),
+        cost_kernel.cost_sums(s, g, [(cam_mu.T.contiguous().T, lmk_mu),
+                                     sets[1]], cfg.huber_nstds))
+
+
+@pytest.mark.cuda
+def test_refit_intrinsics_through_h8_on_card(cuda_device):
+    """One intrinsics refit on a Snavely problem with its focal lengths off
+    by up to 7 % (the ba driver's --refine_intrinsics step), its three MAP
+    costs priced by H8, against the same refit with kernels="reference":
+    the same decision and the same new (f, k1, k2) within 1e-4; a graph
+    whose intrinsics are a strided view prices to the same bits."""
+    prob = balio.synthetic_problem_snavely(8, 80, pixel_noise=0.3, seed=3)
+    rng = np.random.default_rng(1)
+    prob.intrinsics[:, 0] *= rng.uniform(0.93, 1.07, prob.n_keyframes)
+    prob.intrinsics[:, 1] += rng.normal(0, 0.05, prob.n_keyframes)
+    cfg = GBPConfig(accel_every=0)
+    ref = dataclasses.replace(cfg, kernels="reference")
+    g = fg.build_graph(prob, cfg, cuda_device)
+    s = gbp.initialise(fg.init_state(prob, cfg, cuda_device), g, cfg)
+    s, _ = gbp.run_gbp(s, g, cfg, 40, with_diagnostics=False)
+    before = cost_kernel.cost_sums.launches
+    new_intr, acc = refit_intrinsics(s, g, cfg)
+    assert cost_kernel.cost_sums.launches - before == 3
+    want_intr, want_acc = refit_intrinsics(s, g, ref)
+    assert bool(acc) and bool(want_acc)
+    torch.testing.assert_close(new_intr, want_intr, rtol=1e-4, atol=1e-5)
+    strided = dataclasses.replace(g, intr=new_intr.T.contiguous().T)
+    assert not strided.intr.is_contiguous()
+    assert torch.equal(
+        gbp.map_cost(s, strided, cfg),
+        gbp.map_cost(s, dataclasses.replace(g, intr=new_intr), cfg))
+
+
 def hand_loop(state, graph, cfg, n):
     """``run_gbp(state, graph, cfg, n)``'s sweep sequence as a plain loop
     of ``iteration``/``gbp_sweep``, ``_diag_sums`` and ``_accel_step``,
@@ -623,8 +711,6 @@ def _starved_problem():
     keyframe's observations cut to its first 2: the data of those cameras'
     S blocks has rank 4 at most, and weak priors leave the blocks near
     singular."""
-    import dataclasses
-
     p = balio.synthetic_problem(n_keyframes=12, n_points=120, seed=1,
                                 pixel_noise=0.5)
     cam = np.asarray(p.cam_idx)

@@ -198,11 +198,11 @@ extern "C" void host_gather(const float* src, long long n_var, int comp,
 }
 // H6's one launch (csrc/diag.cu diag_sums). A block: each thread's edges
 // (diag_thread_edges), each warp's lanes by the tree of the kernel's
-// shuffles (lane_tree), then its warps in order (diag_fold_warps). The
+// shuffles (lane_tree), then its warps in order (fold_warps). The
 // blocks run in the completion order ``order``; each writes its partial
 // and draws a ticket as atomicInc(ticket, blocks - 1) does, and the one
 // that draws the last adds the partials by the same trees
-// (diag_thread_partials, diag_finish) into ``out``. Returns how many
+// (thread_partials, diag_finish) into ``out``. Returns how many
 // blocks did that.
 // __shfl_down_sync hands lane l the value lane l + h held before the
 // step; lanes < h here read lanes >= h before any of those is written.
@@ -217,7 +217,7 @@ static void host_block(double (*lanes)[DIAG_SUMS], double out[DIAG_SUMS]) {
     lane_tree(lanes + 32 * w);
     for (int k = 0; k < DIAG_SUMS; ++k) warp[w][k] = lanes[32 * w][k];
   }
-  diag_fold_warps(warp, out);
+  fold_warps<DIAG_SUMS>(warp, out);
 }
 extern "C" long long host_diag_blocks(long long n_edges) {
   return diag_blocks(n_edges);
@@ -240,7 +240,8 @@ extern "C" int host_diag(const DiagArgs* a, const long long* order,
     if (drawn != top) continue;
     ++folds;
     for (int t = 0; t < DIAG_THREADS; ++t)
-      diag_thread_partials((const double*)partial, blocks, t, lanes[t]);
+      thread_partials<DIAG_SUMS>((const double*)partial, blocks, t,
+                                 lanes[t]);
     host_block(lanes, sums);
     diag_finish(sums, out);
   }
@@ -757,7 +758,7 @@ def _assert_diag_close(out, ref):
 @pytest.mark.parametrize("masked", [False, True], ids=["all", "bad"])
 def test_host_built_diag_matches_plain(host_lib, name, pad, masked, order):
     """H6's launch (csrc/diag.cuh: ``diag_edge``, ``diag_thread_edges``,
-    ``diag_fold_warps``, ``diag_thread_partials``, ``diag_finish``, with
+    ``fold_warps``, ``thread_partials``, ``diag_finish``, with
     the kernel's lane tree and ticket mirrored) on the plain belief tables
     against ``edge_sums_reference``, on states with singular beliefs,
     padding edges (odd and unpadded for "large odd"), several blocks for
