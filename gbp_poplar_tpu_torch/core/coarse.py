@@ -33,6 +33,7 @@ from ..ops import coarse_kernel, lie, reduce_kernel
 from ..ops import projection  # noqa: F401  (tests read coarse.projection)
 from ..ops.coarse_kernel import lmk_rigid_basis as _lmk_rigid_basis
 from ..ops import planes as pl
+from ..utils.trace import spanned
 from . import comm
 from .factor_graph import GBPGraph, GBPState, Segments, build_segments
 
@@ -124,6 +125,7 @@ def lmk_prior_terms(state: GBPState, lmkr: torch.Tensor,
     return s_lmkt @ (lam_l @ s_lmk), (s_lmkt @ grad_l[..., None])[..., 0]
 
 
+@spanned("gbp.coarse_increment")
 def coarse_increment(state: GBPState, graph: GBPGraph, cfg: GBPConfig,
                      cam_mu: torch.Tensor, lmk_mu: torch.Tensor,
                      group=None, lmk_sharded: bool = False):

@@ -35,6 +35,7 @@ from ..ops import planes as pl
 from ..utils import priors as priors_lib
 from ..utils.balio import BAProblem
 from ..utils.flags import SlamFlags, ba_flags
+from ..utils.trace import spanned
 
 CAM_DOF = 6
 LMK_DOF = 3
@@ -293,6 +294,7 @@ def bad_edge_mask(problem: BAProblem, bad_ids, cfg: GBPConfig) -> np.ndarray:
     return np.pad(mask, (0, padded_n_edges(problem, cfg) - problem.n_edges))
 
 
+@spanned("gbp.build_graph")
 def build_graph(problem: BAProblem, cfg: GBPConfig,
                 device: torch.device | str) -> GBPGraph:
     """Static graph tensors on ``device``, the edge axis padded to
@@ -349,6 +351,7 @@ def build_graph(problem: BAProblem, cfg: GBPConfig,
     )
 
 
+@spanned("gbp.init_state")
 def init_state(problem: BAProblem, cfg: GBPConfig,
                device: torch.device | str,
                flags: SlamFlags | None = None) -> GBPState:

@@ -35,6 +35,7 @@ from ..config import GBPConfig
 from ..ops import planes as pl
 from ..ops import reduce_kernel
 from ..ops.linalg import bmv, inv6x6_cholesky_ex
+from ..utils import trace
 from .factor_graph import GBPGraph
 
 
@@ -255,6 +256,7 @@ def map_cost(cam: torch.Tensor, lmk: torch.Tensor, graph: GBPGraph,
     return _map_cost_planes(cam.T, lmk.T, graph, priors, cfg.huber_nstds)
 
 
+@trace.spanned("gbp.solve_lm")
 def solve_lm(cam0: torch.Tensor, lmk0: torch.Tensor, graph: GBPGraph,
              priors: GNPriors, cfg: GBPConfig, n_lm_iters: int = 30,
              cg_iters: int = 50, cg_tol: float = 1e-6,
@@ -273,25 +275,26 @@ def solve_lm(cam0: torch.Tensor, lmk0: torch.Tensor, graph: GBPGraph,
     cost = _map_cost_planes(cam.T, lmkT, graph, priors, nstds)
     ys = []
     for _ in range(n_lm_iters):
-        ne = _build_planes(cam.T, lmkT, graph, priors, nstds, lm_lambda,
-                           ref)
-        rhs = ne.b_c - _w_z_c6(ne, graph, _minv_apply(ne, ne.b_l3), ref)
-        dx_c = _pcg(ne, rhs, cg_iters, cg_tol,
-                    lambda p: _schur_matvec_p(ne, graph, p, ref))
-        dx_l3 = _minv_apply(ne, ne.b_l3 - _wt_v_l3(ne, graph, dx_c, ref))
-        cam_new = cam + dx_c
-        lmkT_new = lmkT + dx_l3
-        cost_new = _map_cost_planes(cam_new.T, lmkT_new, graph, priors,
-                                    nstds)
-        accept = (cost_new < cost) & torch.isfinite(cost_new)
-        cam = torch.where(accept, cam_new, cam)
-        lmkT = torch.where(accept, lmkT_new, lmkT)
-        cost = torch.where(accept, cost_new, cost)
-        lm_lambda = torch.where(accept,
-                                torch.clamp_min(lm_lambda / 3.0, 1e-9),
-                                torch.clamp_max(lm_lambda * 5.0, 1e6))
-        _, norms = _residual_sums_planes(cam.T, lmkT, graph, nstds)
-        ys.append((cost, norms / n_edges, accept))
+        with trace.span("gbp.lm_iter"):
+            ne = _build_planes(cam.T, lmkT, graph, priors, nstds, lm_lambda,
+                               ref)
+            rhs = ne.b_c - _w_z_c6(ne, graph, _minv_apply(ne, ne.b_l3), ref)
+            dx_c = _pcg(ne, rhs, cg_iters, cg_tol,
+                        lambda p: _schur_matvec_p(ne, graph, p, ref))
+            dx_l3 = _minv_apply(ne, ne.b_l3 - _wt_v_l3(ne, graph, dx_c, ref))
+            cam_new = cam + dx_c
+            lmkT_new = lmkT + dx_l3
+            cost_new = _map_cost_planes(cam_new.T, lmkT_new, graph, priors,
+                                        nstds)
+            accept = (cost_new < cost) & torch.isfinite(cost_new)
+            cam = torch.where(accept, cam_new, cam)
+            lmkT = torch.where(accept, lmkT_new, lmkT)
+            cost = torch.where(accept, cost_new, cost)
+            lm_lambda = torch.where(accept,
+                                    torch.clamp_min(lm_lambda / 3.0, 1e-9),
+                                    torch.clamp_max(lm_lambda * 5.0, 1e6))
+            _, norms = _residual_sums_planes(cam.T, lmkT, graph, nstds)
+            ys.append((cost, norms / n_edges, accept))
     if ys:
         costs, errs, accepted = (torch.stack([y[j] for y in ys])
                                  for j in range(3))

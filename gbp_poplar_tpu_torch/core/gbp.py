@@ -49,6 +49,11 @@ All per-edge state is in plane layout ([component, E] tensors, see
 ops/planes.py). PyTorch runs eagerly: the loop over sweeps is a Python
 loop, and diagnostics and the accelerator's decisions stay on the device
 until the solve returns.
+
+The solve's steps are spans (utils/trace.py): ``gbp.initialise``,
+``gbp.run_gbp``, one ``gbp.sweeps`` per run of sweeps (never one per
+sweep), ``gbp.accel_step`` and ``gbp.coarse_step``; a profiler's trace or
+``trace.collect`` reads them, and with neither on each costs a flag read.
 """
 
 from __future__ import annotations
@@ -59,6 +64,7 @@ import torch
 
 from ..config import GBPConfig
 from ..ops import planes as pl
+from ..utils import trace
 from ..ops import (cost_kernel, diag_kernel, reduce_kernel, sweep_kernel,
                    table_kernel)
 from . import coarse, comm
@@ -512,6 +518,7 @@ def diagnostics(state: GBPState, graph: GBPGraph, cfg: GBPConfig,
 # initialisation and the scheduled iteration
 # ---------------------------------------------------------------------------
 
+@trace.spanned("gbp.initialise")
 def initialise(state: GBPState, graph: GBPGraph, cfg: GBPConfig,
                group=None, lmk_sharded: bool = False) -> GBPState:
     """Beliefs <- priors (+ current messages), then linearise every
@@ -712,6 +719,7 @@ def _apply_shift(state: GBPState, dmsg_c, dmsg_l, cam_deta, lmk_deta,
     return state
 
 
+@trace.spanned("gbp.accel_step")
 def _accel_step(state: GBPState, snap, avg, graph: GBPGraph,
                 cfg: GBPConfig, degs, group=None, lmk_sharded: bool = False):
     """One fixed-point extrapolation at a chunk boundary (the JAX
@@ -774,6 +782,7 @@ def _accel_step(state: GBPState, snap, avg, graph: GBPGraph,
     return state, snap, AccelStep(gain, better, cost_cur, cost_cand)
 
 
+@trace.spanned("gbp.coarse_step")
 def _coarse_step(state: GBPState, graph: GBPGraph, cfg: GBPConfig, degs,
                  cost: torch.Tensor | None = None, group=None,
                  lmk_sharded: bool = False):
@@ -812,6 +821,7 @@ def _coarse_step(state: GBPState, graph: GBPGraph, cfg: GBPConfig, degs,
 # full solves
 # ---------------------------------------------------------------------------
 
+@trace.spanned("gbp.run_gbp")
 def run_gbp(state: GBPState, graph: GBPGraph, cfg: GBPConfig, n_iters: int,
             with_diagnostics: bool = True, iter_offset: int = 0,
             accel_log: list | None = None, verbose_means: bool = False,
@@ -854,6 +864,7 @@ def run_gbp(state: GBPState, graph: GBPGraph, cfg: GBPConfig, n_iters: int,
     cam_means = []
     done = 0
 
+    @trace.spanned("gbp.sweeps")
     def sweeps(s, n, collect=False, anneal_from=None):
         """``n`` sweeps (annealed iterations from index ``anneal_from``);
         with ``collect``, also the sum of the post-sweep sanitised means.

@@ -25,6 +25,7 @@ import torch
 
 from ..config import GBPConfig
 from ..ops import planes as pl
+from ..utils import trace
 from . import comm, gbp
 from .factor_graph import GBPGraph, GBPState
 
@@ -41,6 +42,7 @@ def _depth_median(z: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
     return torch.where(n > 0, mid, torch.nan)
 
 
+@trace.spanned("gbp.insert_keyframe")
 def insert_keyframe(state: GBPState, graph: GBPGraph, cfg: GBPConfig,
                     new_kf: int, av_depth: float = 1.0, group=None,
                     lmk_sharded: bool = False) -> GBPState:
@@ -178,18 +180,19 @@ def solve_slam(
 
     errs, costs, relins, robusts = [], [], [], []
     for k in range(max(1, start_kf), n_kf):
-        state, diag = runner(state)
-        if with_diagnostics:
-            errs.append(diag.reproj_err.cpu().numpy())
-            costs.append(diag.cost.cpu().numpy())
-            relins.append(diag.n_relins.cpu().numpy())
-            robusts.append(diag.n_robust.cpu().numpy())
-            if progress is not None:
-                progress(k, diag)
-        if k + 1 < n_kf:
-            state = inserter(state, k + 1)
-        if segment_callback is not None:
-            segment_callback(k, state)
+        with trace.span("gbp.segment"):
+            state, diag = runner(state)
+            if with_diagnostics:
+                errs.append(diag.reproj_err.cpu().numpy())
+                costs.append(diag.cost.cpu().numpy())
+                relins.append(diag.n_relins.cpu().numpy())
+                robusts.append(diag.n_robust.cpu().numpy())
+                if progress is not None:
+                    progress(k, diag)
+            if k + 1 < n_kf:
+                state = inserter(state, k + 1)
+            if segment_callback is not None:
+                segment_callback(k, state)
 
     def stack(xs):
         return np.stack(xs) if xs else np.zeros((0, ibk))

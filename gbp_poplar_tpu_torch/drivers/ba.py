@@ -22,7 +22,6 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
-import os
 import sys
 import time
 
@@ -131,10 +130,7 @@ def _solve(args, dev: torch.device, group=None) -> int:
         return st if group is None else solver.gather(st, graph.n_edges)
 
     n_refits = [0, 0]               # accepted, attempted
-    prof = None
-    if args.profile and lead:
-        prof = torch.profiler.profile(activities=_profiler_activities(dev))
-        prof.start()
+    prof = common.start_profile(args, dev, lead)
 
     t0 = time.perf_counter()
     if start_iter == 0:
@@ -217,13 +213,6 @@ def _solve(args, dev: torch.device, group=None) -> int:
     if args.refine_intrinsics:
         note(f"intrinsics refits: {n_refits[0]}/{n_refits[1]} accepted")
 
-    if prof is not None:
-        prof.stop()
-        os.makedirs(args.profile_dir, exist_ok=True)
-        path = os.path.join(args.profile_dir, "trace.json")
-        prof.export_chrome_trace(path)
-        note(f"profile written to {path}")
-
     if args.checkpoint:
         state = whole(state)
     if not lead:
@@ -243,6 +232,7 @@ def _solve(args, dev: torch.device, group=None) -> int:
         cam_mu, lmk_mu = pol_cam, res.lmk.cpu().numpy()
         note(f"polish: reproj {float(res.reproj_err[-1]):.5f} px, "
              f"max camera movement {moved:.5f} m")
+    common.end_profile(prof, args, note)
     # the independent host oracle at the end of the solve (--bad_assoc:
     # the reference's skip list)
     bad = common.parse_bad_assoc(args.bad_assoc)
@@ -267,13 +257,6 @@ def _solve(args, dev: torch.device, group=None) -> int:
         note(f"GN baseline: reproj_err {float(res.reproj_err[-1]):.5f} px, "
              f"ATE(GBP vs GN) {ate:.6f} m")
     return 0
-
-
-def _profiler_activities(dev: torch.device):
-    acts = [torch.profiler.ProfilerActivity.CPU]
-    if dev.type == "cuda":
-        acts.append(torch.profiler.ProfilerActivity.CUDA)
-    return acts
 
 
 def _per_camera_intr(intr: torch.Tensor, graph, problem) -> np.ndarray:

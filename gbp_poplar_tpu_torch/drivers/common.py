@@ -54,6 +54,33 @@ def check_devices(n_devices: int, dev: torch.device) -> None:
             f"{cores} ranks (one per CPU core of this machine)")
 
 
+def start_profile(args, dev: torch.device, lead: bool):
+    """Under ``--profile``, on the rank that writes (``lead``): a started
+    ``torch.profiler`` session over the host and, on a card, the device,
+    for ``end_profile``; else None. The solver's spans (``utils/trace``)
+    land in its trace."""
+    if not (args.profile and lead):
+        return None
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    if dev.type == "cuda":
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
+    prof = torch.profiler.profile(activities=acts)
+    prof.start()
+    return prof
+
+
+def end_profile(prof, args, note) -> None:
+    """Stop ``start_profile``'s session (None: nothing) and write its
+    chrome trace to ``<--profile_dir>/trace.json``, named by ``note``."""
+    if prof is None:
+        return
+    prof.stop()
+    os.makedirs(args.profile_dir, exist_ok=True)
+    path = os.path.join(args.profile_dir, "trace.json")
+    prof.export_chrome_trace(path)
+    note(f"profile written to {path}")
+
+
 def add_common_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--bal_file", required=True,
                    help="BAL-format file or sequence name (e.g. fr1xyz)")
@@ -78,8 +105,8 @@ def add_common_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--v", action="store_true", help="verbose belief dumps")
     p.add_argument("--profile", action="store_true",
-                   help="capture a torch.profiler trace of the solve to "
-                        "--profile_dir")
+                   help="capture a torch.profiler trace of the solve "
+                        "(the polish included) to --profile_dir/trace.json")
     p.add_argument("--profile_dir",
                    default=os.path.join(tempfile.gettempdir(), "gbp_profile"))
     p.add_argument("--devices", type=int, default=1,

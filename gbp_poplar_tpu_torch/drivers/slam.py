@@ -198,6 +198,7 @@ def _solve(args, dev: torch.device, group=None) -> int:
                 save_segment(args.checkpoint, full, graph, cfg, k, ibk,
                              args.devices)
 
+    prof = common.start_profile(args, dev, lead)
     t0 = time.perf_counter()
     result = slam.solve_slam(
         state, run_graph, cfg,
@@ -236,6 +237,7 @@ def _solve(args, dev: torch.device, group=None) -> int:
         cam_mu, lmk_mu = pol_cam, res.lmk.cpu().numpy()
         note(f"polish: reproj {float(res.reproj_err[-1]):.5f} px, "
              f"max camera movement {moved:.5f} m")
+    common.end_profile(prof, args, note)
     # the independent host oracle (--bad_assoc: the reference's skip list)
     bad = common.parse_bad_assoc(args.bad_assoc)
     o_err, o_cost = evaluation.numpy_reprojection_error(

@@ -25,10 +25,16 @@ ones are read, and the span is the whole trace.
 
 ``busy_share`` and ``kernel_times`` read any chrome trace that
 ``torch.profiler`` exports (``scripts/torch_kernel_probe.py`` uses them).
+``span_table`` reads the solver's own spans
+(``utils/trace.span``, ``user_annotation`` events named ``gbp.*``) in such
+a trace: calls, host time, and the device events issued inside each;
+``idle_by_span`` names the device's idle gaps after the span the host was
+in (``scripts/torch_step_profile.py`` uses them).
 """
 
 from __future__ import annotations
 
+import bisect
 import json
 import os
 import sys
@@ -46,14 +52,16 @@ SHAPES = {"ladybug": (1723, 156000, 7), "venice": (1778, 994000, 5),
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 HOST_CATS = ("cpu_op",)
 SWEEP_MARK = "sweep"      # H1 sweep_kernel and H4 sweep_planes_kernel
+RUNTIME_CATS = ("cuda_runtime", "cuda_driver")
+SPAN_CAT = "user_annotation"
+SPAN_PREFIX = "gbp."
 
 
-def trace_events(trace: str, cats=DEVICE_CATS) -> list:
-    """The complete events of ``cats`` in a chrome trace file; for host
-    operators (``cpu_op``) only the top-level ones of each thread."""
-    with open(trace) as f:
-        evs = [e for e in json.load(f)["traceEvents"]
-               if e.get("ph") == "X" and e.get("cat") in cats]
+def trace_events(trace, cats=DEVICE_CATS) -> list:
+    """The complete events of ``cats`` in a chrome trace (a file or its
+    complete events, ``complete_events``); for host operators
+    (``cpu_op``) only the top-level ones of each thread."""
+    evs = [e for e in complete_events(trace) if e.get("cat") in cats]
     if "cpu_op" not in cats:
         return evs
     top, end = [], {}
@@ -102,6 +110,123 @@ def kernel_times(trace: str, cats=DEVICE_CATS) -> dict:
         us, n = per.get(e["name"], (0.0, 0))
         per[e["name"]] = (us + e["dur"], n + 1)
     return per
+
+
+def complete_events(trace) -> list:
+    """The complete (``ph`` X) events of a chrome trace file, or the list
+    itself when given one."""
+    if not isinstance(trace, str):
+        return trace
+    with open(trace) as f:
+        return [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X"]
+
+
+def _spans(evs: list) -> list:
+    return [e for e in evs if e.get("cat") == SPAN_CAT
+            and str(e.get("name", "")).startswith(SPAN_PREFIX)]
+
+
+def _enclosing(spans: list, calls: list) -> dict:
+    """{key: names of the spans enclosing the call, outermost first} for
+    ``calls`` [(tid, ts, key)], each against the spans of its own thread
+    (properly nested, as ``record_function`` makes them)."""
+    by_tid = {}
+    for e in spans:
+        by_tid.setdefault(e.get("tid"), []).append(e)
+    out = {}
+    for tid in {c[0] for c in calls}:
+        sp = sorted(by_tid.get(tid, []), key=lambda e: (e["ts"], -e["dur"]))
+        stack, i = [], 0
+        for _, ts, key in sorted(c for c in calls if c[0] == tid):
+            while i < len(sp) and sp[i]["ts"] <= ts:
+                while stack and (stack[-1]["ts"] + stack[-1]["dur"]
+                                 < sp[i]["ts"]):
+                    stack.pop()
+                stack.append(sp[i])
+                i += 1
+            while stack and stack[-1]["ts"] + stack[-1]["dur"] < ts:
+                stack.pop()
+            out[key] = tuple(e["name"] for e in stack)
+    return out
+
+
+def span_table(trace) -> dict:
+    """{span name: (calls, device events, device s, host s)} of the
+    solver's spans in a chrome trace (a file or its complete events). A
+    device event (kernel, copy, set) is issued inside every span that
+    encloses, on the launching thread, the runtime call (``cuda_runtime``,
+    ``cuda_driver``) carrying its ``correlation`` id, so a nested span's
+    events count for its parents too; its device seconds are its own
+    duration. Host seconds: the spans' durations (stretched by the
+    profiler's own cost)."""
+    evs = complete_events(trace)
+    spans = _spans(evs)
+    calls = [(e.get("tid"), e["ts"], e["args"]["correlation"]) for e in evs
+             if e.get("cat") in RUNTIME_CATS
+             and "correlation" in e.get("args", {})]
+    owner = _enclosing(spans, calls)
+    table = {}
+    for e in spans:
+        n, k, d, h = table.get(e["name"], (0, 0, 0.0, 0.0))
+        table[e["name"]] = (n + 1, k, d, h + e["dur"] / 1e6)
+    for e in evs:
+        if e.get("cat") not in DEVICE_CATS:
+            continue
+        for name in set(owner.get(e.get("args", {}).get("correlation"), ())):
+            n, k, d, h = table[name]
+            table[name] = (n, k + 1, d + e["dur"] / 1e6, h)
+    return table
+
+
+def idle_by_span(trace, t0: float | None = None, t1: float | None = None,
+                 top: int = 10) -> list:
+    """[[name, idle seconds]] of the device's idle time in [t0, t1] (µs;
+    the whole trace for None), most first: each gap between device events
+    is named ``<innermost gbp.* span> > <top-level host operator>`` at its
+    middle (``python`` between operators; the span part left out where no
+    span covers it)."""
+    evs = complete_events(trace)
+    dev = sorted((e for e in evs if e.get("cat") in DEVICE_CATS),
+                 key=lambda e: e["ts"])
+    host = trace_events(evs, HOST_CATS)
+    spans = sorted(_spans(evs), key=lambda e: (e["ts"], -e["dur"]))
+    if t0 is None:
+        everything = dev + host + spans
+        t0 = min(e["ts"] for e in everything)
+        t1 = max(e["ts"] + e["dur"] for e in everything)
+    busy = []
+    for e in dev:
+        a, b = max(e["ts"], t0), min(e["ts"] + e["dur"], t1)
+        if b <= a:
+            continue
+        if busy and a <= busy[-1][1]:
+            busy[-1][1] = max(busy[-1][1], b)
+        else:
+            busy.append([a, b])
+
+    host.sort(key=lambda e: e["ts"])
+    hs, ss = [e["ts"] for e in host], [e["ts"] for e in spans]
+
+    def covering(evs, starts, t, look):
+        # the latest-starting event covering t: the innermost of nested
+        # spans; host operators are the top-level ones, so one per thread
+        i = bisect.bisect_right(starts, t) - 1
+        for j in range(i, max(-1, i - look), -1):
+            if evs[j]["ts"] + evs[j]["dur"] >= t:
+                return evs[j]
+        return None
+
+    per, edge = {}, t0
+    for a, b in busy + [[t1, t1]]:
+        if a > edge:
+            mid = 0.5 * (edge + a)
+            s = covering(spans, ss, mid, len(spans))
+            h = covering(host, hs, mid, 64)
+            name = ((s["name"] + " > ") if s else "") + (
+                h["name"] if h else "python")
+            per[name] = per.get(name, 0.0) + (a - edge) / 1e6
+        edge = max(edge, b)
+    return sorted(([k, v] for k, v in per.items()), key=lambda r: -r[1])[:top]
 
 
 def profile_run(state, graph, cfg: GBPConfig, k: int,

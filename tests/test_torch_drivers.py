@@ -180,14 +180,52 @@ def test_verbose_prints_the_means_every_sweep(tiny_bal, capsys):
     assert "cam means:" in out
 
 
+def _program_spans(trace) -> dict:
+    """{name: count} of the solver's spans (``gbp.*`` user annotations)
+    in a chrome trace."""
+    import json
+
+    with open(trace) as f:
+        evs = json.load(f)["traceEvents"]
+    out = {}
+    for e in evs:
+        if (e.get("ph") == "X" and e.get("cat") == "user_annotation"
+                and e["name"].startswith("gbp.")):
+            out[e["name"]] = out.get(e["name"], 0) + 1
+    return out
+
+
 def test_profile_writes_a_trace(tiny_bal, tmp_path, capsys):
+    """``ba --profile`` traces the solve and its polish: the trace holds
+    the solver's spans, ``gbp.solve_lm`` and its iterations among them."""
     rc, _, err = _run(capsys, ba.main, "--bal_file", tiny_bal, "--n_iters",
-                      6, "--no_polish", "--profile", "--profile_dir",
-                      tmp_path / "prof")
+                      6, "--profile", "--profile_dir", tmp_path / "prof")
     assert rc == 0, err[-2000:]
     trace = tmp_path / "prof" / "trace.json"
     assert f"profile written to {trace}" in err
     assert trace.stat().st_size > 0
+    spans = _program_spans(trace)
+    assert spans["gbp.initialise"] == spans["gbp.solve_lm"] == 1
+    assert spans["gbp.run_gbp"] == 1 and spans["gbp.lm_iter"] == 15
+    # the polish's exact-edge graph is built inside the trace
+    assert spans["gbp.build_graph"] == 1
+
+
+def test_slam_profile_writes_a_trace(slam_bal, tmp_path, capsys):
+    """``slam --profile`` writes its trace: a segment per keyframe after
+    the first two, an insertion per segment but the last."""
+    from gbp_poplar_tpu_torch.drivers import slam
+
+    rc, _, err = _run(capsys, slam.main, "--bal_file", slam_bal,
+                      "--iters_between_kfs", 10, "--profile",
+                      "--profile_dir", tmp_path / "prof")
+    assert rc == 0, err[-2000:]
+    trace = tmp_path / "prof" / "trace.json"
+    assert f"profile written to {trace}" in err
+    spans = _program_spans(trace)
+    assert spans["gbp.segment"] == spans["gbp.run_gbp"] == 5
+    assert spans["gbp.insert_keyframe"] == 4
+    assert spans["gbp.initialise"] == 1
 
 
 def test_bad_assoc_is_excluded_from_the_oracle(tiny_bal, tmp_path, capsys):
