@@ -239,6 +239,10 @@ class GBPState:
     active: torch.Tensor        # [E] int32 — edge participates in GBP
     cam_weaken: torch.Tensor    # [C] int32 prior-annealing flags
     lmk_weaken: torch.Tensor    # [L] int32
+    # the accelerator step captured as a CUDA graph on this state
+    # (core/gbp.py, ``_AccelGraph``); not a field, so ``clone()``,
+    # ``dataclasses.replace`` and ``state_to_numpy`` leave it behind
+    accel_graph = None
 
     cam_eta = property(lambda s: s.cam_bel[:CAM_DOF])
     cam_lam = property(lambda s: s.cam_bel[CAM_DOF:])

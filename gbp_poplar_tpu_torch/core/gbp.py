@@ -50,14 +50,23 @@ ops/planes.py). PyTorch runs eagerly: the loop over sweeps is a Python
 loop, and diagnostics and the accelerator's decisions stay on the device
 until the solve returns.
 
+On a card, with the kernels and without ``group``, the accelerator step
+is captured once per state as one CUDA graph and replayed at every later
+boundary (``_AccelGraph``): the same kernels in the same order, ~960
+launches issued as one.
+
 The solve's steps are spans (utils/trace.py): ``gbp.initialise``,
 ``gbp.run_gbp``, one ``gbp.sweeps`` per run of sweeps (never one per
-sweep), ``gbp.accel_step`` and ``gbp.coarse_step``; a profiler's trace or
-``trace.collect`` reads them, and with neither on each costs a flag read.
+sweep), ``gbp.accel_step`` (holding ``gbp.accel_eager`` or
+``gbp.accel_capture`` unless it is a replay) and ``gbp.coarse_step``; a
+profiler's trace or ``trace.collect`` reads them, and with neither on each
+costs a flag read.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import weakref
 from typing import NamedTuple
 
 import torch
@@ -65,8 +74,8 @@ import torch
 from ..config import GBPConfig
 from ..ops import planes as pl
 from ..utils import trace
-from ..ops import (cost_kernel, diag_kernel, reduce_kernel, sweep_kernel,
-                   table_kernel)
+from ..ops import (coarse_kernel, cost_kernel, diag_kernel, reduce_kernel,
+                   sweep_kernel, table_kernel)
 from . import coarse, comm
 from .factor_graph import (CAM_DOF, LMK_DOF, MSG_CAM_ROWS, MSG_LMK_ROWS,
                            GBPGraph, GBPState)
@@ -719,8 +728,7 @@ def _apply_shift(state: GBPState, dmsg_c, dmsg_l, cam_deta, lmk_deta,
     return state
 
 
-@trace.spanned("gbp.accel_step")
-def _accel_step(state: GBPState, snap, avg, graph: GBPGraph,
+def _accel_math(state: GBPState, snap, avg, graph: GBPGraph,
                 cfg: GBPConfig, degs, group=None, lmk_sharded: bool = False):
     """One fixed-point extrapolation at a chunk boundary (the JAX
     package's ``_accel_step``; its docstring gives the reasoning).
@@ -780,6 +788,190 @@ def _accel_step(state: GBPState, snap, avg, graph: GBPGraph,
     jump_l = torch.where(better, gain * dl_mu, 0.0)
     snap = (avg_cam + jump_c, avg_lmk + jump_l, dc_mu)
     return state, snap, AccelStep(gain, better, cost_cur, cost_cand)
+
+
+def _step_inputs(state: GBPState, snap, avg, degs) -> tuple:
+    """What ``_accel_math`` reads that is reallocated between chunk
+    boundaries, in ``_AccelGraph``'s order: the beliefs, the priors (the
+    annealing replaces them), the snap, the chunk's averaged means and the
+    active degrees."""
+    return (state.cam_bel, state.lmk_bel, state.cam_prior, state.lmk_prior,
+            *snap, *avg, *degs)
+
+
+def _accel_key(state: GBPState, snap, avg, graph: GBPGraph, cfg: GBPConfig,
+               degs):
+    """(baked, sig): the tensors a captured step reads in place, and what
+    else it was captured for (its inputs' shapes, dtypes and devices, the
+    baked tensors' shapes, the config numbers and the intrinsics it
+    reads)."""
+    baked = (state.pk, state.active, graph.cam_idx, graph.lmk_idx,
+             graph.meas, graph.meas_var, graph.intr)
+    sig = (tuple((t.shape, t.dtype, t.device)
+                 for t in _step_inputs(state, snap, avg, degs)),
+           tuple(None if t is None else t.shape for t in baked),
+           cfg.accel_max_rate, cfg.accel_max_step, cfg.huber_nstds,
+           tuple(float(x) for x in graph.k.ravel()))
+    return baked, sig
+
+
+# device -> (the graph that keeps a memory pool open, the pool's capture
+# stream, a weak reference to the graph that captured into it last); see
+# ``_AccelGraph._pool``
+_POOLS = {}
+
+# the kernel wrappers that count their launches (``fn.launches``)
+_COUNTED = (sweep_kernel.sweep, sweep_kernel.sweep_planes,
+            table_kernel.build_tables, reduce_kernel.segment_sum,
+            reduce_kernel.gather, diag_kernel.edge_sums,
+            coarse_kernel.coarse_edge_blocks, cost_kernel.cost_sums)
+
+
+class _AccelGraph:
+    """``_accel_math`` captured as one CUDA graph for one state, held as
+    ``state.accel_graph`` and freed with it (it holds no reference to the
+    state, so no cycle outlives it).
+
+    The graph reads in place the tensors of ``_accel_key``'s ``baked``
+    (the packed edge state, whose message rows the step shifts in place,
+    the active flags, the graph's edge tensors), held by weak reference;
+    ``_step_inputs`` are copied into its own buffers before each replay.
+    Its outputs are handed over, not copied: the beliefs to the state (the
+    next sweep replaces them; a caller that keeps ``state.cam_bel`` past
+    the next step clones it), and clones of the snap and of the four
+    scalars (one launch) to the caller, so nothing the caller keeps is
+    overwritten by the next replay. It is captured and replayed on a side
+    stream that no other live graph uses (``_pool``): the H8 launch inside
+    uses that stream's scratch, reserved before the capture and held here,
+    so it serves launches on one stream, one after another, each leaving
+    its ticket at 0. Each replay adds the
+    captured launches to the kernel wrappers' ``launches`` counts, as the
+    eager step's calls do."""
+
+    def __init__(self, key):
+        baked, self.sig = key
+        self.refs = tuple(None if t is None else weakref.ref(t)
+                          for t in baked)
+        self.graph = None
+
+    def matches(self, key) -> bool:
+        baked, sig = key
+        return sig == self.sig and all(
+            t is None if r is None else r() is t
+            for r, t in zip(self.refs, baked))
+
+    def _pool(self, dev) -> tuple:
+        """(stream, ``capture_begin``'s pool): the device's shared pool and
+        its stream when no other live graph uses them, so that a freed
+        graph's memory serves the next capture instead of staying cached
+        beside it (the allocator reuses a pool's free blocks on their own
+        stream only, and returns a freed graph's own pool only when memory
+        runs short); else a stream and a private pool of its own (two live
+        graphs must not share temporaries)."""
+        keeper, stream, user = _POOLS.get(dev, (None, None, None))
+        if keeper is None:
+            # a graph of one fill, never replayed: while it lives the pool
+            # stays open to later captures
+            stream, keeper = torch.cuda.Stream(dev), torch.cuda.CUDAGraph()
+            with torch.cuda.device(dev), torch.cuda.stream(stream):
+                keeper.capture_begin()
+                try:
+                    torch.zeros(1, device=dev)
+                finally:
+                    keeper.capture_end()
+        elif user() is not None:
+            return torch.cuda.Stream(dev), ()
+        _POOLS[dev] = keeper, stream, weakref.ref(self)
+        return stream, (keeper.pool(),)
+
+    def capture(self, state: GBPState, snap, avg, graph: GBPGraph,
+                cfg: GBPConfig, degs) -> None:
+        """Record ``_accel_math`` on buffers of the inputs' shapes (capture
+        executes nothing; ``replay`` runs it)."""
+        dev = state.pk.device
+        self.stream, pool = self._pool(dev)
+        self.scratch = cost_kernel.scratch(dev, self.stream.cuda_stream,
+                                           graph.n_edges)
+        self.ins = [torch.empty_like(t)
+                    for t in _step_inputs(state, snap, avg, degs)]
+        cam_bel, lmk_bel, cam_prior, lmk_prior, *rest = self.ins
+        proxy = dataclasses.replace(state, cam_bel=cam_bel, lmk_bel=lmk_bel,
+                                    cam_prior=cam_prior, lmk_prior=lmk_prior)
+        # by hand: ``torch.cuda.graph`` drains the device and empties the
+        # whole cache before each capture, once a solve
+        cuda_graph = torch.cuda.CUDAGraph()
+        before = [fn.launches for fn in _COUNTED]
+        self.stream.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(self.stream):
+            cuda_graph.capture_begin(*pool)
+            try:
+                proxy, self.snap, info = _accel_math(
+                    proxy, tuple(rest[:3]), tuple(rest[3:5]), graph, cfg,
+                    tuple(rest[5:]))
+                # the four scalars as bytes in one buffer, the flag last
+                # so that each number lies at a multiple of its size
+                fields = (info.gain, info.cost_cur, info.cost_cand,
+                          info.accepted)
+                self.info = torch.cat([t.reshape(1).view(torch.uint8)
+                                       for t in fields])
+            finally:
+                cuda_graph.capture_end()
+        # the capture launched nothing: its wrappers' counts are each
+        # replay's
+        self.launches = [fn.launches - n for fn, n in zip(_COUNTED, before)]
+        for fn, n in zip(_COUNTED, self.launches):
+            fn.launches -= n
+        self.bel = (proxy.cam_bel, proxy.lmk_bel)
+        self.layout = [(t.dtype, t.element_size()) for t in fields]
+        self.graph = cuda_graph
+
+    def replay(self, state: GBPState, snap, avg, degs):
+        """``_accel_math(state, snap, avg, ...)`` as one replay; the same
+        results to the bit."""
+        for buf, t in zip(self.ins, _step_inputs(state, snap, avg, degs)):
+            buf.copy_(t)
+        cur = torch.cuda.current_stream(state.pk.device)
+        self.stream.wait_stream(cur)
+        with torch.cuda.stream(self.stream):
+            self.graph.replay()
+        cur.wait_stream(self.stream)
+        for fn, n in zip(_COUNTED, self.launches):
+            fn.launches += n
+        state.cam_bel, state.lmk_bel = self.bel
+        info, at, fields = self.info.clone(), 0, []
+        for dtype, n in self.layout:
+            fields.append(info[at:at + n].view(dtype)[0])
+            at += n
+        gain, cost_cur, cost_cand, accepted = fields
+        return (state, tuple(t.clone() for t in self.snap),
+                AccelStep(gain, accepted, cost_cur, cost_cand))
+
+
+@trace.spanned("gbp.accel_step")
+def _accel_step(state: GBPState, snap, avg, graph: GBPGraph,
+                cfg: GBPConfig, degs, group=None, lmk_sharded: bool = False):
+    """``_accel_math`` (its docstring says what one step does), eagerly or
+    as a replay of its CUDA graph (``_AccelGraph``). On a card, with the
+    kernels and without ``group``, a state's first step runs eagerly (the
+    warm-up: every kernel loaded), the second is captured and replayed,
+    and each later one is a replay; a step whose ``_accel_key`` differs
+    from the captured one's runs eagerly and drops the graph, and the next
+    recaptures. Every other step runs eagerly. Spans: ``gbp.accel_eager``
+    around an eager step, ``gbp.accel_capture`` around a capture. Returns
+    (state, next snap, AccelStep), to the bit the same either way."""
+    if (group is None and cfg.kernels != "reference"
+            and state.pk.device.type == "cuda"):
+        key = _accel_key(state, snap, avg, graph, cfg, degs)
+        held = state.accel_graph
+        if held is not None and held.matches(key):
+            if held.graph is None:
+                with trace.span("gbp.accel_capture"):
+                    held.capture(state, snap, avg, graph, cfg, degs)
+            return held.replay(state, snap, avg, degs)
+        state.accel_graph = _AccelGraph(key)
+    with trace.span("gbp.accel_eager"):
+        return _accel_math(state, snap, avg, graph, cfg, degs, group,
+                           lmk_sharded)
 
 
 @trace.spanned("gbp.coarse_step")

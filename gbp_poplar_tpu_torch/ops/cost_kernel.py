@@ -94,6 +94,14 @@ def cost_args(state, graph, means, nstds: float, bad, intr) -> CostArgs:
         0.5 * nstds * nstds, len(means))
 
 
+def scratch(device, stream: int, n_edges: int) -> _cuda.Scratch:
+    """The scratch a launch on ``stream`` for ``n_edges`` edges uses
+    (``_cuda.shared_scratch``, shared with H6). A CUDA graph's capture
+    calls it first, so that none is allocated inside the capture."""
+    return _cuda.shared_scratch(device, stream, MAX_SETS,
+                                _cuda.library().gbp_diag_blocks(n_edges))
+
+
 def cost_sums(state, graph, means, nstds: float,
               bad: torch.Tensor | None = None,
               reference: bool = False) -> torch.Tensor:
@@ -129,15 +137,12 @@ def cost_sums(state, graph, means, nstds: float,
     if bad is not None:
         bad = op("bad", bad, (e,), torch.bool, device)
     out = torch.empty(len(means), dtype=torch.float32, device=device)
-    lib = _cuda.library()
     stream = _cuda.stream_ptr(out)
-    scratch = _cuda.shared_scratch(device, stream, MAX_SETS,
-                                   lib.gbp_diag_blocks(e))
+    sc = scratch(device, stream, e)
     args = cost_args(state, graph, means, nstds, bad, intr)
-    err = lib.gbp_cost_launch(ctypes.addressof(args),
-                              scratch.partial.data_ptr(),
-                              scratch.ticket.data_ptr(), out.data_ptr(),
-                              stream)
+    err = _cuda.library().gbp_cost_launch(
+        ctypes.addressof(args), sc.partial.data_ptr(), sc.ticket.data_ptr(),
+        out.data_ptr(), stream)
     _cuda.check(err, "cost kernel")
     cost_sums.launches += 1
     return out

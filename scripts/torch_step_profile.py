@@ -18,10 +18,11 @@ collection on, and under the profiler.
 
 Prints the card's name and power limit, then as its last line one JSON
 object: ``steps``, the per-step readings (host ms per accelerator step,
-coarse step and LM iteration in the window; device events per coarse
-step, accelerator step and LM iteration, and per sweep, in the profiled
-unit); ``collected`` {span: [host s, calls]} of the window with the
-window's units; ``profiled`` {span: [calls, device events, device s, host
+coarse step and LM iteration, and the share of accelerator steps replayed
+from their CUDA graph, in the window; device events per coarse step,
+accelerator step and LM iteration, and per sweep, in the profiled unit);
+``collected`` {span: [host s, calls]} of the window with the window's
+units; ``profiled`` {span: [calls, device events, device s, host
 s]}; ``idle_gaps``; ``span_us`` (one span's cost per sink). Needs the
 benchmark's files beside the program and a CUDA card.
 """
@@ -128,6 +129,12 @@ def measure(workload: str, seed: int, seconds: float,
         steps[key] = k / n if n else None
     k = table.get("gbp.sweeps", (0, 0))[1]
     steps["sweep_launches"] = k / n_h1 if n_h1 else None
+    # the accelerator steps replayed from their CUDA graph in the window:
+    # those neither run eagerly nor captured
+    n = totals.get("gbp.accel_step", (0.0, 0))[1]
+    other = sum(totals.get(name, (0.0, 0))[1]
+                for name in ("gbp.accel_eager", "gbp.accel_capture"))
+    steps["accel_replay_share"] = (n - other) / n if n else None
     return {"workload": workload, "seed": seed,
             "device": harness.power_line(), "setup_s": setup_s,
             "window_s": window_s, "units": rec.counts.get(proc.KIND, 0),

@@ -281,3 +281,57 @@ def test_solve_ba_default_config_matches_jax(synthetic):
     np.testing.assert_allclose(et[-1], np.asarray(ej)[-1], rtol=SOLVE_RTOL,
                                atol=SOLVE_ATOL_PX)
     assert GBPConfig().accel_every == 50         # the accelerator is on
+
+
+def _accel_calls(rank, kernels):
+    """The span calls of a 40-sweep run_gbp of the noisy problem on
+    ``rank``'s CPU, edge-sharded over its group (None: one device), and
+    whether the state holds a captured step."""
+    from gbp_poplar_tpu_torch import parallel
+    from gbp_poplar_tpu_torch.utils import trace
+
+    tp, _ = _noisy()
+    cfg = GBPConfig(edge_pad_multiple=PAD, kernels=kernels, **ACCEL)
+    g = fg.build_graph(tp, cfg, "cpu")
+    s = fg.init_state(tp, cfg, "cpu")
+    with trace.collect() as totals:
+        if rank is None:
+            s, _ = gbp.solve(s, g, cfg, 40)
+        else:
+            solver = parallel.make_sharded_solver(rank.group, cfg)
+            g, s = solver.prepare(g, s)
+            s, _ = solver.solve(s, g, 40)
+    return {k: n for k, (_, n) in totals.items()}, s.accel_graph is None
+
+
+@pytest.mark.parametrize("case", ["auto", "reference", "group"])
+def test_accel_steps_run_eagerly_off_the_card(case):
+    """Off the card every accelerator step runs eagerly: each
+    ``gbp.accel_step`` holds one ``gbp.accel_eager``, none a capture, and
+    no state holds a captured step; so with ``kernels="reference"`` and
+    with a process group (the sharded solvers, here one gloo rank)."""
+    from gbp_poplar_tpu_torch import parallel
+
+    if case == "group":
+        ((calls, none),) = parallel.run(_accel_calls, 1, args=("auto",),
+                                        device_type="cpu")
+    else:
+        calls, none = _accel_calls(None, case)
+    assert calls["gbp.accel_step"] == calls["gbp.accel_eager"] == 3
+    assert "gbp.accel_capture" not in calls and none
+
+
+def test_clone_carries_no_captured_step():
+    """A captured step is its state's alone: ``clone()``,
+    ``dataclasses.replace`` and ``state_to_numpy`` leave it behind."""
+    import dataclasses
+
+    tp, _ = _noisy()
+    cfg = GBPConfig(edge_pad_multiple=PAD, **ACCEL)
+    s = fg.init_state(tp, cfg, "cpu")
+    assert s.accel_graph is None
+    s.accel_graph = held = object()
+    assert s.clone().accel_graph is None
+    assert dataclasses.replace(s).accel_graph is None
+    assert set(fg.state_to_numpy(s)) == set(fg.STATE_FIELDS)
+    assert s.accel_graph is held

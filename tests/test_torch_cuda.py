@@ -748,3 +748,222 @@ def test_lm_preconditioner_blocks_same_on_card_and_host(cuda_device,
         assert torch.equal(card.cpu(), host), inv.__name__
         counts.append(int(host.sum()))
     assert counts[0] == counts[1] > 0, counts
+
+
+# ---------------------------------------------------------------------------
+# the accelerator step as one CUDA graph (core/gbp.py, _AccelGraph)
+# ---------------------------------------------------------------------------
+
+# the slam driver's schedule flags (benchmark/traffic/keyframes.json)
+SLAM_CFG = dict(relin_behind_camera=False, behind_camera_rescue_iters=300,
+                iters_before_damping=0, relin_every_iter=True,
+                eta_damping=0.7, lambda_damping=True,
+                relin_drift_threshold=0.05, iters_between_kfs=700)
+
+
+def _accel_run(case, device):
+    """The case's solve on the card: (state, telemetry rows, accel_log,
+    span calls). ``slam``: solve_slam over 5 keyframes, 700 sweeps a
+    segment (11 live steps each, the priors replaced by every segment's
+    annealing); ``ladybug``: a Ladybug-like problem with the coarse step,
+    three run_gbp calls of 40 sweeps as the ba driver's spans."""
+    from gbp_poplar_tpu_torch.core import slam
+    from gbp_poplar_tpu_torch.utils import flags, trace
+
+    log = []
+    with trace.collect() as totals:
+        if case == "slam":
+            prob = balio.synthetic_problem(n_keyframes=5, n_points=60,
+                                           seed=2, pixel_noise=0.5)
+            cfg = GBPConfig(**SLAM_CFG)
+            g = fg.build_graph(prob, cfg, device)
+            s = fg.init_state(prob, cfg, device,
+                              flags=flags.create_flags(prob, cfg.steps))
+            res = slam.solve_slam(s, g, cfg, av_depth=6.0, runner=(
+                lambda st: gbp.run_gbp(st, g, cfg, cfg.iters_between_kfs,
+                                       accel_log=log)))
+            s, rows = res.state, res[1:]
+        else:
+            prob = balio.synthetic_problem_large(n_keyframes=20,
+                                                 n_points=1000,
+                                                 obs_per_lmk=7, seed=2)
+            cfg = GBPConfig(accel_every=8, accel_start=10, coarse_groups=4)
+            g = fg.build_graph(prob, cfg, device)
+            s = gbp.initialise(fg.init_state(prob, cfg, device), g, cfg)
+            rows = []
+            for i in range(0, 120, 40):
+                s, d = gbp.run_gbp(s, g, cfg, 40, iter_offset=i,
+                                   accel_log=log)
+                rows += [x.cpu().numpy() for x in d[:4]]
+    return s, rows, log, {k: n for k, (_, n) in totals.items()}
+
+
+def _step_numbers(info):
+    """An AccelStep's tensors (and its coarse record's), in order."""
+    out = [info.gain, info.accepted, info.cost_cur, info.cost_cand]
+    if info.coarse is not None:
+        out += list(info.coarse)
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["slam", "ladybug"])
+def test_captured_accel_step_equals_eager_on_card(cuda_device, monkeypatch,
+                                                  case):
+    """run_gbp with the accelerator step replayed from its CUDA graph
+    against the same solve with every step run eagerly (``_accel_math``
+    called directly): the state, the telemetry and every accel_log entry
+    to the bit. Of the steps one ran eagerly and one was captured, the
+    rest were replays; the logged scalars are each step's own tensors,
+    not views of the graph's outputs."""
+    got = _accel_run(case, cuda_device)
+    monkeypatch.setattr(gbp, "_accel_step", gbp._accel_math)
+    want = _accel_run(case, cuda_device)
+    (s, rows, log, calls), (s0, rows0, log0, _) = got, want
+    for (k, x), y in zip(fg.state_to_numpy(s).items(),
+                         fg.state_to_numpy(s0).values()):
+        assert np.array_equal(x, y, equal_nan=True), k
+    for x, y in zip(rows, rows0, strict=True):
+        assert np.array_equal(x, y, equal_nan=True)
+    n_steps = len(log)
+    assert n_steps == calls["gbp.accel_step"] == len(log0) >= (
+        44 if case == "slam" else 12)
+    assert calls["gbp.accel_eager"] == calls["gbp.accel_capture"] == 1
+    for (n, info), (n0, info0) in zip(log, log0):
+        assert n == n0
+        for x, y in zip(_step_numbers(info), _step_numbers(info0),
+                        strict=True):
+            assert np.array_equal(x.cpu().numpy(), y.cpu().numpy(),
+                                  equal_nan=True), n
+    for field in ("gain", "accepted", "cost_cur", "cost_cand"):
+        ptrs = {getattr(i, field).data_ptr() for _, i in log}
+        assert len(ptrs) == n_steps, field
+    assert len({float(i.cost_cur) for _, i in log}) > 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["slam", "ladybug"])
+def test_replayed_launches_count_on_card(cuda_device, monkeypatch, case):
+    """Each kernel wrapper's ``launches`` counts the launches that ran, the
+    replayed ones too and the capture's not: a solve whose steps were run
+    eagerly, captured and replayed counts what the same solve with every
+    step eager counts, and H8 one launch an accelerator step and one a
+    coarse step."""
+    def counts(run_case):
+        for fn in gbp._COUNTED:
+            monkeypatch.setattr(fn, "launches", 0)
+        _, _, log, calls = run_case(case, cuda_device)
+        torch.cuda.synchronize(cuda_device)
+        return [fn.launches for fn in gbp._COUNTED], log, calls
+
+    got, log, calls = counts(_accel_run)
+    assert calls["gbp.accel_eager"] == calls["gbp.accel_capture"] == 1
+    assert calls["gbp.accel_step"] == len(log) > 2
+    n_coarse = sum(info.coarse is not None for _, info in log)
+    assert n_coarse == (0 if case == "slam" else len(log))
+    assert got[gbp._COUNTED.index(cost_kernel.cost_sums)] == (
+        len(log) + n_coarse)
+    monkeypatch.setattr(gbp, "_accel_step", gbp._accel_math)
+    want, _, _ = counts(_accel_run)
+    assert got == want
+
+
+@pytest.mark.cuda
+def test_accel_graph_lives_with_its_state_on_card(cuda_device, monkeypatch):
+    """The captured step is its state's: a fresh state captures its own,
+    ``clone()`` carries none, and the first state's is freed with it (no
+    cycle holds it); its memory serves the next capture, so fresh states
+    one after another hold the device's reserved memory level. H8's
+    ticket is 0 after the replays. When a tensor the graph reads in place
+    is replaced, the next step runs eagerly, the one after recaptures,
+    and the solve equals an eager one to the bit."""
+    import weakref
+
+    from gbp_poplar_tpu_torch.utils import trace
+
+    prob = balio.synthetic_problem_large(n_keyframes=20, n_points=1000,
+                                         obs_per_lmk=7, seed=2)
+    cfg = GBPConfig(accel_every=8, accel_start=10)
+    g = fg.build_graph(prob, cfg, cuda_device)
+
+    def run(s, n, offset=0):
+        with trace.collect() as totals:
+            s, d = gbp.run_gbp(s, g, cfg, n, iter_offset=offset)
+        return s, d, {k: c for k, (_, c) in totals.items()}
+
+    def fresh():
+        return gbp.initialise(fg.init_state(prob, cfg, cuda_device), g, cfg)
+
+    a, _, calls_a = run(fresh(), 50)
+    b, _, calls_b = run(fresh(), 50)
+    for calls in (calls_a, calls_b):
+        assert calls["gbp.accel_step"] == 5
+        assert calls["gbp.accel_eager"] == calls["gbp.accel_capture"] == 1
+    held = a.accel_graph
+    assert isinstance(held, gbp._AccelGraph) and held.graph is not None
+    assert b.accel_graph is not held and b.accel_graph.graph is not None
+    assert a.clone().accel_graph is None
+    assert int(held.scratch.ticket.item()) == 0
+    refs = weakref.ref(held), weakref.ref(held.graph)
+    del a, held
+    assert all(r() is None for r in refs)
+    reserved = []
+    for _ in range(4):
+        s, _, _ = run(fresh(), 50)
+        assert gbp._POOLS[cuda_device][2]() is s.accel_graph
+        del s
+        torch.cuda.synchronize(cuda_device)
+        reserved.append(torch.cuda.memory_reserved(cuda_device))
+    assert reserved[3] == reserved[1], reserved
+
+    b.pk = b.pk.clone()
+    c = b.clone()
+    b, d, calls = run(b, 40, 50)
+    assert calls["gbp.accel_step"] == 5
+    assert calls["gbp.accel_eager"] == calls["gbp.accel_capture"] == 1
+    monkeypatch.setattr(gbp, "_accel_step", gbp._accel_math)
+    c, d0, _ = run(c, 40, 50)
+    assert_same_run((b, d), (c, d0))
+
+
+def _nccl_accel_calls(rank):
+    """One NCCL rank's span calls over an edge-sharded solve with the
+    accelerator, and whether its state holds a captured step."""
+    from gbp_poplar_tpu_torch import parallel
+    from gbp_poplar_tpu_torch.utils import trace
+
+    prob = balio.synthetic_problem_large(n_keyframes=20, n_points=1000,
+                                         obs_per_lmk=7, seed=2)
+    cfg = GBPConfig(accel_every=8, accel_start=10)
+    solver = parallel.make_sharded_solver(rank.group, cfg)
+    g, s = solver.prepare(fg.build_graph(prob, cfg, rank.device),
+                          fg.init_state(prob, cfg, rank.device))
+    with trace.collect() as totals:
+        s, _ = solver.solve(s, g, 50)
+    return {k: n for k, (_, n) in totals.items()}, s.accel_graph is None
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["reference", "nccl"])
+def test_accel_steps_stay_eager_on_card(cuda_device, case):
+    """With ``kernels="reference"`` or a process group (the sharded
+    solvers) every accelerator step on the card runs eagerly and no state
+    holds a captured step."""
+    from gbp_poplar_tpu_torch import parallel
+    from gbp_poplar_tpu_torch.utils import trace
+
+    if case == "nccl":
+        ((calls, none),) = parallel.run(_nccl_accel_calls, 1,
+                                        device_type="cuda")
+    else:
+        prob = balio.synthetic_problem_large(n_keyframes=20, n_points=1000,
+                                             obs_per_lmk=7, seed=2)
+        cfg = GBPConfig(accel_every=8, accel_start=10, kernels="reference")
+        g = fg.build_graph(prob, cfg, cuda_device)
+        s = gbp.initialise(fg.init_state(prob, cfg, cuda_device), g, cfg)
+        with trace.collect() as totals:
+            s, _ = gbp.run_gbp(s, g, cfg, 50)
+        calls = {k: n for k, (_, n) in totals.items()}
+        none = s.accel_graph is None
+    assert calls["gbp.accel_step"] == calls["gbp.accel_eager"] == 5
+    assert "gbp.accel_capture" not in calls and none
