@@ -58,7 +58,9 @@ def _applies(metric: dict, workload: str) -> bool:
 
 
 def load_cell(name: str, root: str = ROOT) -> Cell:
-    """The cell ``name`` of ``<root>/BENCHMARK.json`` and its files."""
+    """The cell ``name`` of ``<root>/BENCHMARK.json`` and its files, its
+    traffic and limits in ``root``'s copy of this folder."""
+    folder = os.path.join(root, os.path.relpath(BENCH, ROOT))
     bench = load_json(os.path.join(root, "BENCHMARK.json"))
     wl = next((w for w in bench["workloads"] if w["name"] == name), None)
     if wl is None:
@@ -71,9 +73,9 @@ def load_cell(name: str, root: str = ROOT) -> Cell:
     return Cell(
         workload=wl,
         config=load_json(os.path.join(root, cfg_entry["file"])),
-        traffic=load_json(os.path.join(BENCH, "traffic",
+        traffic=load_json(os.path.join(folder, "traffic",
                                         wl["traffic"] + ".json")),
-        limits=load_json(os.path.join(BENCH, "limits", name + ".json")),
+        limits=load_json(os.path.join(folder, "limits", name + ".json")),
         metrics=e2e + layer, per_layer={m["name"] for m in layer})
 
 

@@ -8,11 +8,12 @@ import subprocess
 import sys
 import time
 
+import numpy as np
 import pytest
 import torch
 
 import harness
-from tiny import tiny_cell
+from tiny import COLLECTION, SIZES, TRAFFIC, tiny_cell
 
 ROOT = harness.ROOT
 with open(os.path.join(ROOT, "BENCHMARK.json")) as _f:
@@ -166,3 +167,55 @@ def test_run_without_a_card_exits_and_prints_nothing():
          WORKLOADS[0], "--seed", "1", "--seconds", "1", "--trace", "0"],
         capture_output=True, text=True, cwd=ROOT, timeout=120)
     assert proc.returncode != 0 and proc.stdout == ""
+
+
+def test_a_collection_cell_needs_only_new_files(tmp_path):
+    """A photo-collection configuration under ``gbp-solve`` runs from new
+    files and entries alone: a root holding BENCHMARK.json with the new
+    entries, the configuration's file and the cell's limits, loaded by
+    ``load_cell``, generated, solved once by the procedure on the CPU and
+    judged."""
+    import check
+    import gen
+    import units
+
+    folder = tmp_path / os.path.relpath(harness.BENCH, ROOT)
+    for sub in ("configs", "limits", "traffic"):
+        (folder / sub).mkdir(parents=True)
+    config = harness.load_json(os.path.join(harness.BENCH, "configs",
+                                            "bal-ladybug-1723.json"))
+    config.update(name="tiny-collection", **SIZES)
+    config["generator"].update(COLLECTION)
+    (folder / "configs" / "tiny-collection.json").write_text(
+        json.dumps(config))
+    (folder / "traffic" / "gbp-solve.json").write_text(json.dumps(
+        harness.load_json(os.path.join(harness.BENCH, "traffic",
+                                       "gbp-solve.json"))))
+    (folder / "limits" / "tiny-collection-gbp.json").write_text(json.dumps(
+        harness.load_json(os.path.join(harness.BENCH, "limits",
+                                       "ladybug-gbp.json"))))
+    bench = json.loads(json.dumps(BENCH))
+    bench["configs"].append({
+        "name": "tiny-collection", "source": "a test's photo collection",
+        "file": f"{folder.name}/configs/tiny-collection.json",
+        "reduced": list(SIZES), "why": "a photo collection at tiny sizes"})
+    bench["workloads"].append({
+        "name": "tiny-collection-gbp", "config": "tiny-collection",
+        "traffic": "gbp-solve", "chips": 1, "why": "a collection's sweeps"})
+    (tmp_path / "BENCHMARK.json").write_text(json.dumps(bench))
+
+    cell = harness.load_cell("tiny-collection-gbp", str(tmp_path))
+    assert cell.config["generator"]["visibility"] == "collection"
+    assert cell.limits == harness.load_cell("ladybug-gbp").limits
+    cell.traffic.update(TRAFFIC["gbp-solve"])
+    dev, seed = torch.device("cpu"), 2 ** 31 + 11
+    problem = gen.make_problem(cell.config, seed)
+    proc = harness.procedure(cell.traffic["procedure"])
+    unit = proc.Unit(cell.config, cell.traffic, problem, dev, seed)
+    unit.once(units.Recorder(dev))
+    judge = check.Judge(problem, cell.config, dev)
+    checks, failed = check.judge(proc.rows(judge, unit.answers), cell.limits)
+    assert set(checks) == set(cell.limits)
+    for c in checks.values():
+        assert np.isfinite(c["value"])
+    assert failed == 0

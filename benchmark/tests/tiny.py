@@ -7,6 +7,8 @@ import harness
 WORKLOADS = [w["name"] for w in harness.load_json(
     harness.os.path.join(harness.ROOT, "BENCHMARK.json"))["workloads"]]
 SIZES = {"n_keyframes": 8, "n_points": 150, "n_observations": 650}
+# the generator key that makes a test configuration a photo collection (gen.py)
+COLLECTION = {"visibility": "collection"}
 TRAFFIC = {"cold-solve": {"n_iters": 300, "solver": {"coarse_groups": 4}},
            "gbp-solve": {"n_iters": 300},
            "keyframes": {"solver": {"iters_between_kfs": 60},
