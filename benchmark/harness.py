@@ -110,6 +110,11 @@ class Run:
     peak_bytes: int        # torch.cuda.max_memory_allocated in the window
     shape: roofline.Shape
     trace: tracing.Trace | None = None
+    # the traced window's program spans as collected ({span: (host s,
+    # calls)}, ``units.program_spans``), and the profiled unit's
+    # ({span: tracing.Step}); None in an untraced run
+    program: dict | None = None
+    steps: dict | None = None
 
 
 def shape_of(problem, pad_multiple: int) -> roofline.Shape:
@@ -144,13 +149,15 @@ def forbidden_modules() -> list[str]:
                   & set(FORBIDDEN))
 
 
-def profile_unit(unit, dev, log=sys.stderr) -> tracing.Trace:
+def profile_unit(unit, dev, log=sys.stderr):
     """``unit.profiled`` timed by the host's clock between two
     synchronisations, unprofiled, straight after the window while the card
     is warm (``Trace.plain_s``: the host profiler's own cost stretches the
     traced unit, and not the device's busy time); then the same unit under
     ``torch.profiler`` (host and device), its chrome trace written under
-    TMPDIR, read and deleted."""
+    TMPDIR, read and deleted. Returns the ``tracing.Trace`` and, on a card,
+    the program's steps in it (``tracing.program_steps``; None elsewhere,
+    where the trace holds no device)."""
     import units
     from torch.profiler import ProfilerActivity, profile, record_function
 
@@ -170,11 +177,13 @@ def profile_unit(unit, dev, log=sys.stderr) -> tracing.Trace:
                 unit.profiled(rec)
             units.synchronize(dev)
         prof.export_chrome_trace(path)
-        tr = tracing.load(path)
+        evs = tracing.complete_events(path)
+    tr = tracing.load(evs)
+    steps = tracing.program_steps(evs) if dev.type == "cuda" else None
     tr.plain_s = plain_s
     print(f"profiled unit: {tr.plain_s!r} s unprofiled, {tr.window_s!r} s "
           "traced", file=log)
-    return tr
+    return tr, steps
 
 
 def run_cell(cell: Cell, seed: int, seconds: float, trace: bool,
@@ -196,13 +205,15 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool,
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
     rec = units.Recorder(dev, sync=trace)
-    t0 = time.perf_counter()
-    unit.window(rec, t0 + seconds)
-    units.synchronize(dev)
-    window_s = time.perf_counter() - t0
+    with units.program_spans(trace) as totals:
+        t0 = time.perf_counter()
+        unit.window(rec, t0 + seconds)
+        units.synchronize(dev)
+        window_s = time.perf_counter() - t0
+    program = dict(totals) if totals is not None else None
     peak = (torch.cuda.max_memory_allocated(dev) if dev.type == "cuda"
             else 0)
-    tr = profile_unit(unit, dev, log) if trace else None
+    tr, steps = profile_unit(unit, dev, log) if trace else (None, None)
     pad = units.solver_config(cell.config, cell.traffic).edge_pad_multiple
 
     answers, latencies = unit.answers, unit.latencies
@@ -218,7 +229,8 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool,
 
     run = Run(setup_s=setup_s, window_s=window_s, spans=rec.spans,
               counts=rec.counts, latencies=latencies, peak_bytes=peak,
-              shape=shape_of(problem, pad), trace=tr)
+              shape=shape_of(problem, pad), trace=tr, program=program,
+              steps=steps)
     metrics = {}
     for m in cell.metrics:
         if (m["name"] in cell.per_layer) != trace:

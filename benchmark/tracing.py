@@ -1,11 +1,13 @@
 """Reading a ``torch.profiler`` chrome trace: device time by kernel, the
-device's busy share, and where it idles.
+device's busy share, where it idles, and what each of the program's own
+steps issued.
 
-The event selection and the interval union are copied from
+The event selection, the interval union and the rule that gives a runtime
+call to the spans enclosing it are copied from
 ``gbp_poplar_tpu_torch/tools/profile_sweep.py`` (``trace_events``,
-``busy_share``, ``kernel_times``), kept here so that a change to the
-program cannot move the yardstick. Times in a chrome trace are in µs;
-everything returned here is in seconds.
+``busy_share``, ``kernel_times``, ``span_table``), kept here so that a
+change to the program cannot move the yardstick. Times in a chrome trace
+are in µs; everything returned here is in seconds.
 """
 
 from __future__ import annotations
@@ -18,6 +20,20 @@ DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 HOST_CATS = ("cpu_op",)
 MARK_CAT = "user_annotation"
 UNIT_MARK = "bench.unit"
+RUNTIME_CATS = ("cuda_runtime", "cuda_driver")
+STEP_PREFIX = "gbp."      # the program's spans (utils/trace.py)
+# The runtime and driver calls that start device work, each one launch: a
+# kernel, a whole CUDA graph (one call however many kernels it holds), a
+# copy, a set. Inside a stream capture the same calls record into the
+# graph and start nothing on the device; they count all the same.
+LAUNCH_CALLS = frozenset({
+    "cudaLaunchKernel", "cudaLaunchKernelExC", "cudaLaunchCooperativeKernel",
+    "cuLaunchKernel", "cuLaunchKernelEx", "cudaGraphLaunch", "cuGraphLaunch",
+    "cudaMemcpy", "cudaMemcpyAsync", "cudaMemcpy2DAsync",
+    "cudaMemcpyPeerAsync", "cuMemcpyAsync", "cuMemcpyHtoDAsync_v2",
+    "cuMemcpyDtoHAsync_v2", "cuMemcpyDtoDAsync_v2",
+    "cudaMemset", "cudaMemsetAsync", "cuMemsetD8Async", "cuMemsetD32Async",
+})
 
 
 @dataclasses.dataclass
@@ -49,9 +65,30 @@ def _top_level(evs: list) -> list:
     return top
 
 
-def load(path: str) -> Trace:
-    with open(path) as f:
-        evs = [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X"]
+@dataclasses.dataclass
+class Step:
+    """One of the program's spans over a trace: its calls, the launches
+    (``LAUNCH_CALLS``) made inside them, the device events those calls
+    started, their device seconds, and the events by name."""
+
+    calls: int = 0
+    launches: int = 0
+    events: int = 0
+    device_s: float = 0.0
+    kernels: dict = dataclasses.field(default_factory=dict)
+
+
+def complete_events(trace) -> list:
+    """The complete (``ph`` X) events of a chrome trace file, or the list
+    itself when given one."""
+    if not isinstance(trace, str):
+        return trace
+    with open(trace) as f:
+        return [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X"]
+
+
+def load(path) -> Trace:
+    evs = complete_events(path)
     marks = [e for e in evs if e.get("cat") == MARK_CAT
              and str(e.get("name", "")).startswith("bench.")]
     unit = [e for e in marks if e["name"] == UNIT_MARK]
@@ -63,6 +100,69 @@ def load(path: str) -> Trace:
                     key=lambda e: e["ts"])
     host = _top_level([e for e in evs if e.get("cat") in HOST_CATS])
     return Trace(device=device, host=host, marks=marks, t0=t0, t1=t1)
+
+
+def _enclosing(spans: list, calls: list) -> dict:
+    """{key: names of the spans enclosing the call, outermost first} for
+    ``calls`` [(tid, ts, key)], each against the spans of its own thread
+    (properly nested, as ``record_function`` makes them)."""
+    by_tid = {}
+    for e in spans:
+        by_tid.setdefault(e.get("tid"), []).append(e)
+    per_tid = {}
+    for c in calls:
+        per_tid.setdefault(c[0], []).append(c)
+    out = {}
+    for tid, mine in per_tid.items():
+        sp = sorted(by_tid.get(tid, []), key=lambda e: (e["ts"], -e["dur"]))
+        stack, i = [], 0
+        for _, ts, key in sorted(mine, key=lambda c: (c[1], c[2])):
+            while i < len(sp) and sp[i]["ts"] <= ts:
+                while stack and (stack[-1]["ts"] + stack[-1]["dur"]
+                                 < sp[i]["ts"]):
+                    stack.pop()
+                stack.append(sp[i])
+                i += 1
+            while stack and stack[-1]["ts"] + stack[-1]["dur"] < ts:
+                stack.pop()
+            out[key] = tuple(e["name"] for e in stack)
+    return out
+
+
+def program_steps(trace) -> dict:
+    """{span name: Step} of the program's spans (``user_annotation`` events
+    named ``gbp.*``) in a chrome trace (a file or its complete events). A
+    runtime or driver call counts for every span that encloses it on its
+    own thread, so a nested span's calls count for its parents too; the
+    device events (kernels, copies, sets) that carry its ``correlation`` id
+    count with it (a graph launch's kernels carry the launch's)."""
+    evs = complete_events(trace)
+    spans = [e for e in evs if e.get("cat") == MARK_CAT
+             and str(e.get("name", "")).startswith(STEP_PREFIX)]
+    steps = {}
+    for e in spans:
+        steps.setdefault(e["name"], Step()).calls += 1
+    runtime = [e for e in evs if e.get("cat") in RUNTIME_CATS]
+    owner = _enclosing(spans, [(e.get("tid"), e["ts"], i)
+                               for i, e in enumerate(runtime)])
+    issued = {}
+    for i, e in enumerate(runtime):
+        names = set(owner.get(i, ()))
+        if e.get("name") in LAUNCH_CALLS:
+            for name in names:
+                steps[name].launches += 1
+        corr = e.get("args", {}).get("correlation")
+        if corr is not None and names:
+            issued[corr] = names
+    for e in evs:
+        if e.get("cat") not in DEVICE_CATS:
+            continue
+        for name in issued.get(e.get("args", {}).get("correlation"), ()):
+            st = steps[name]
+            st.events += 1
+            st.device_s += e["dur"] / 1e6
+            st.kernels[e["name"]] = st.kernels.get(e["name"], 0) + 1
+    return steps
 
 
 def busy_intervals(tr: Trace) -> list:

@@ -1,7 +1,8 @@
 """What the procedures (``procedures/<name>.py``) share: the recorder of
 spans and counts, the solver's configuration from a configuration and a
 traffic file, the problem as the program takes it, the telemetry's read
-back, and the batch solves' closed loop. With the procedures, the only
+back, the batch solves' closed loop, and the collection of the program's
+own spans around the traced window. With the procedures, the only
 modules of the benchmark that import the program (``gbp_poplar_tpu_torch``).
 
 A traffic file (``traffic/<mix>.json``) names its procedure in
@@ -33,7 +34,7 @@ import time
 import torch
 
 from gbp_poplar_tpu_torch.config import GBPConfig
-from gbp_poplar_tpu_torch.utils import balio
+from gbp_poplar_tpu_torch.utils import balio, trace
 
 import check
 
@@ -74,6 +75,14 @@ class Recorder:
 
     def count(self, name: str, n: int = 1) -> None:
         self.counts[name] = self.counts.get(name, 0) + n
+
+
+def program_spans(on: bool):
+    """With ``on``, the program's ``trace.collect()``: it yields the
+    totals {span: (host seconds, calls)} of the program's ``gbp.*`` spans
+    closed inside the block. Otherwise a null context yielding None, and
+    the program's spans stay off."""
+    return trace.collect() if on else contextlib.nullcontext()
 
 
 def solver_config(config: dict, traffic: dict) -> GBPConfig:
