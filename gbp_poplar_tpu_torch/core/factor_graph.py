@@ -239,10 +239,13 @@ class GBPState:
     active: torch.Tensor        # [E] int32 — edge participates in GBP
     cam_weaken: torch.Tensor    # [C] int32 prior-annealing flags
     lmk_weaken: torch.Tensor    # [L] int32
-    # the accelerator step captured as a CUDA graph on this state
-    # (core/gbp.py, ``_AccelGraph``); not a field, so ``clone()``,
-    # ``dataclasses.replace`` and ``state_to_numpy`` leave it behind
+    # the accelerator step and the runs of sweeps captured as CUDA graphs
+    # on this state (core/gbp.py, ``_AccelGraph``; ``_SweepGraph``s by
+    # (n, collect), a dict made at the first run); not fields, so
+    # ``clone()``, ``dataclasses.replace`` and ``state_to_numpy`` leave
+    # them behind
     accel_graph = None
+    sweep_graphs = None
 
     cam_eta = property(lambda s: s.cam_bel[:CAM_DOF])
     cam_lam = property(lambda s: s.cam_bel[CAM_DOF:])

@@ -51,13 +51,15 @@ loop, and diagnostics and the accelerator's decisions stay on the device
 until the solve returns.
 
 On a card, with the kernels and without ``group``, the accelerator step
-is captured once per state as one CUDA graph and replayed at every later
-boundary (``_AccelGraph``): the same kernels in the same order, ~960
-launches issued as one.
+and each anneal-free run of sweeps are captured once per state as CUDA
+graphs and replayed from then on (``_AccelGraph``, ``_SweepGraph``): the
+same kernels in the same order, ~960 launches a step and ~390 a run of 50
+sweeps issued as one.
 
 The solve's steps are spans (utils/trace.py): ``gbp.initialise``,
 ``gbp.run_gbp``, one ``gbp.sweeps`` per run of sweeps (never one per
-sweep), ``gbp.accel_step`` (holding ``gbp.accel_eager`` or
+sweep; holding ``gbp.sweeps_eager`` or ``gbp.sweeps_capture`` unless it is
+a replay), ``gbp.accel_step`` (holding ``gbp.accel_eager`` or
 ``gbp.accel_capture`` unless it is a replay) and ``gbp.coarse_step``; a
 profiler's trace or ``trace.collect`` reads them, and with neither on each
 costs a flag read.
@@ -815,9 +817,24 @@ def _accel_key(state: GBPState, snap, avg, graph: GBPGraph, cfg: GBPConfig,
     return baked, sig
 
 
+# ---------------------------------------------------------------------------
+# captured steps
+# ---------------------------------------------------------------------------
+#
+# On a card, with the kernels and without ``group`` (``_capturable``), a
+# step that makes no host decision is captured once per state as one CUDA
+# graph and replayed: the accelerator step (``_AccelGraph``) and each
+# anneal-free run of sweeps of ``run_gbp`` (``_SweepGraph``). A step's
+# first call on a state runs eagerly (the warm-up: every kernel loaded,
+# its launch attributes set), the second is captured and replayed, and
+# each later one is a replay; a call whose key differs from the held
+# graph's runs eagerly and drops it, and the next recaptures. Both share
+# ``_Captured``: the key match, the state's pool and stream, the input
+# copies and the launch counts.
+
 # device -> (the graph that keeps a memory pool open, the pool's capture
-# stream, a weak reference to the graph that captured into it last); see
-# ``_AccelGraph._pool``
+# stream, a weak reference to the ``_GraphPool`` that captured into it
+# last); see ``_GraphPool``
 _POOLS = {}
 
 # the kernel wrappers that count their launches (``fn.launches``)
@@ -827,26 +844,56 @@ _COUNTED = (sweep_kernel.sweep, sweep_kernel.sweep_planes,
             coarse_kernel.coarse_edge_blocks, cost_kernel.cost_sums)
 
 
-class _AccelGraph:
-    """``_accel_math`` captured as one CUDA graph for one state, held as
-    ``state.accel_graph`` and freed with it (it holds no reference to the
-    state, so no cycle outlives it).
+def _capturable(state: GBPState, cfg: GBPConfig, group) -> bool:
+    """Whether the state's steps may be captured: on a card, with the
+    kernels and without a process group (the sharded solvers)."""
+    return (group is None and cfg.kernels != "reference"
+            and state.pk.device.type == "cuda")
 
-    The graph reads in place the tensors of ``_accel_key``'s ``baked``
-    (the packed edge state, whose message rows the step shifts in place,
-    the active flags, the graph's edge tensors), held by weak reference;
-    ``_step_inputs`` are copied into its own buffers before each replay.
-    Its outputs are handed over, not copied: the beliefs to the state (the
-    next sweep replaces them; a caller that keeps ``state.cam_bel`` past
-    the next step clones it), and clones of the snap and of the four
-    scalars (one launch) to the caller, so nothing the caller keeps is
-    overwritten by the next replay. It is captured and replayed on a side
-    stream that no other live graph uses (``_pool``): the H8 launch inside
-    uses that stream's scratch, reserved before the capture and held here,
-    so it serves launches on one stream, one after another, each leaving
-    its ticket at 0. Each replay adds the
-    captured launches to the kernel wrappers' ``launches`` counts, as the
-    eager step's calls do."""
+
+class _GraphPool:
+    """The memory pool and capture stream that one state's captured steps
+    share: the device's shared pool and its stream when no other state's
+    steps use them, so that a freed state's graphs' memory serves the next
+    state's captures instead of staying cached beside it (the allocator
+    reuses a pool's free blocks on their own stream only, and returns a
+    freed graph's own pool only when memory runs short); else a stream and
+    a pool of the state's own. Two states' graphs must not share one: a
+    replay's temporaries may lie where another state's beliefs do. One
+    state's graphs may, since each replay reads the state's inputs from
+    buffers of its own, allocated outside the pool, and whatever it hands
+    out from the pool is read or replaced before the state's next
+    replay."""
+
+    def __init__(self, dev):
+        keeper, stream, user = _POOLS.get(dev, (None, None, None))
+        if keeper is None:
+            # a graph of one fill, never replayed: while it lives the pool
+            # stays open to later captures
+            stream, keeper = torch.cuda.Stream(dev), torch.cuda.CUDAGraph()
+            with torch.cuda.device(dev), torch.cuda.stream(stream):
+                keeper.capture_begin()
+                try:
+                    torch.zeros(1, device=dev)
+                finally:
+                    keeper.capture_end()
+        elif user() is not None:
+            self.stream = torch.cuda.Stream(dev)
+            self.handle = torch.cuda.graph_pool_handle()
+            return
+        _POOLS[dev] = keeper, stream, weakref.ref(self)
+        self.stream, self.handle = stream, keeper.pool()
+
+
+class _Captured:
+    """One step captured as one CUDA graph for one state, held by the state
+    and freed with it (it holds no reference to the state, so no cycle
+    outlives it). The graph reads in place the tensors of its key's
+    ``baked``, held by weak reference, and the step's other inputs are
+    copied into buffers of its own before each replay. It is captured and
+    replayed on the stream of its state's ``_GraphPool``. Each replay adds
+    the captured launches to the kernel wrappers' ``launches`` counts, as
+    the eager step's calls do."""
 
     def __init__(self, key):
         baked, self.sig = key
@@ -860,60 +907,31 @@ class _AccelGraph:
             t is None if r is None else r() is t
             for r, t in zip(self.refs, baked))
 
-    def _pool(self, dev) -> tuple:
-        """(stream, ``capture_begin``'s pool): the device's shared pool and
-        its stream when no other live graph uses them, so that a freed
-        graph's memory serves the next capture instead of staying cached
-        beside it (the allocator reuses a pool's free blocks on their own
-        stream only, and returns a freed graph's own pool only when memory
-        runs short); else a stream and a private pool of its own (two live
-        graphs must not share temporaries)."""
-        keeper, stream, user = _POOLS.get(dev, (None, None, None))
-        if keeper is None:
-            # a graph of one fill, never replayed: while it lives the pool
-            # stays open to later captures
-            stream, keeper = torch.cuda.Stream(dev), torch.cuda.CUDAGraph()
-            with torch.cuda.device(dev), torch.cuda.stream(stream):
-                keeper.capture_begin()
-                try:
-                    torch.zeros(1, device=dev)
-                finally:
-                    keeper.capture_end()
-        elif user() is not None:
-            return torch.cuda.Stream(dev), ()
-        _POOLS[dev] = keeper, stream, weakref.ref(self)
-        return stream, (keeper.pool(),)
+    def _claim(self, state: GBPState) -> torch.cuda.Stream:
+        """Join the pool of the state's other captured steps, or take one;
+        returns its stream."""
+        held = (state.accel_graph, *(state.sweep_graphs or {}).values())
+        self.pool = next((g.pool for g in held if g is not None
+                          and g is not self and g.graph is not None), None)
+        if self.pool is None:
+            self.pool = _GraphPool(state.pk.device)
+        return self.pool.stream
 
-    def capture(self, state: GBPState, snap, avg, graph: GBPGraph,
-                cfg: GBPConfig, degs) -> None:
-        """Record ``_accel_math`` on buffers of the inputs' shapes (capture
-        executes nothing; ``replay`` runs it)."""
-        dev = state.pk.device
-        self.stream, pool = self._pool(dev)
-        self.scratch = cost_kernel.scratch(dev, self.stream.cuda_stream,
-                                           graph.n_edges)
-        self.ins = [torch.empty_like(t)
-                    for t in _step_inputs(state, snap, avg, degs)]
-        cam_bel, lmk_bel, cam_prior, lmk_prior, *rest = self.ins
-        proxy = dataclasses.replace(state, cam_bel=cam_bel, lmk_bel=lmk_bel,
-                                    cam_prior=cam_prior, lmk_prior=lmk_prior)
+    def _record(self, inputs, body):
+        """Record ``body(*buffers)`` on buffers of the ``inputs``' shapes
+        (capture executes nothing; ``_replay`` runs it) and return what it
+        returns: the graph's outputs."""
+        self.ins = [torch.empty_like(t) for t in inputs]
+        stream = self.pool.stream
         # by hand: ``torch.cuda.graph`` drains the device and empties the
-        # whole cache before each capture, once a solve
+        # whole cache before each capture
         cuda_graph = torch.cuda.CUDAGraph()
         before = [fn.launches for fn in _COUNTED]
-        self.stream.wait_stream(torch.cuda.current_stream(dev))
-        with torch.cuda.stream(self.stream):
-            cuda_graph.capture_begin(*pool)
+        stream.wait_stream(torch.cuda.current_stream(stream.device))
+        with torch.cuda.stream(stream):
+            cuda_graph.capture_begin(self.pool.handle)
             try:
-                proxy, self.snap, info = _accel_math(
-                    proxy, tuple(rest[:3]), tuple(rest[3:5]), graph, cfg,
-                    tuple(rest[5:]))
-                # the four scalars as bytes in one buffer, the flag last
-                # so that each number lies at a multiple of its size
-                fields = (info.gain, info.cost_cur, info.cost_cand,
-                          info.accepted)
-                self.info = torch.cat([t.reshape(1).view(torch.uint8)
-                                       for t in fields])
+                out = body(*self.ins)
             finally:
                 cuda_graph.capture_end()
         # the capture launched nothing: its wrappers' counts are each
@@ -921,22 +939,70 @@ class _AccelGraph:
         self.launches = [fn.launches - n for fn, n in zip(_COUNTED, before)]
         for fn, n in zip(_COUNTED, self.launches):
             fn.launches -= n
+        self.graph = cuda_graph
+        return out
+
+    def _replay(self, inputs) -> None:
+        """Copy ``inputs`` in (those that are not already its buffers) and
+        replay the graph."""
+        for buf, t in zip(self.ins, inputs):
+            if buf is not t:
+                buf.copy_(t)
+        stream = self.pool.stream
+        cur = torch.cuda.current_stream(stream.device)
+        stream.wait_stream(cur)
+        with torch.cuda.stream(stream):
+            self.graph.replay()
+        cur.wait_stream(stream)
+        for fn, n in zip(_COUNTED, self.launches):
+            fn.launches += n
+
+
+class _AccelGraph(_Captured):
+    """``_accel_math`` captured for one state, held as
+    ``state.accel_graph``. It reads ``_accel_key``'s ``baked`` in place
+    (the packed edge state, whose message rows the step shifts in place,
+    the active flags, the graph's edge tensors) and copies
+    ``_step_inputs`` in. Its outputs are handed over, not copied: the
+    beliefs to the state (the next sweep replaces them; a caller that
+    keeps ``state.cam_bel`` past the next step clones it), and clones of
+    the snap and of the four scalars (one launch) to the caller, so
+    nothing the caller keeps is overwritten by the next replay. The H8
+    launch inside uses its stream's scratch, reserved before the capture
+    and held here, so it serves launches on one stream, one after
+    another, each leaving its ticket at 0."""
+
+    def capture(self, state: GBPState, snap, avg, graph: GBPGraph,
+                cfg: GBPConfig, degs) -> None:
+        """Record ``_accel_math`` for replays from these inputs' shapes."""
+        stream = self._claim(state)
+        self.scratch = cost_kernel.scratch(state.pk.device,
+                                           stream.cuda_stream, graph.n_edges)
+
+        def body(cam_bel, lmk_bel, cam_prior, lmk_prior, *rest):
+            proxy = dataclasses.replace(state, cam_bel=cam_bel,
+                                        lmk_bel=lmk_bel, cam_prior=cam_prior,
+                                        lmk_prior=lmk_prior)
+            proxy, snap, info = _accel_math(proxy, tuple(rest[:3]),
+                                            tuple(rest[3:5]), graph, cfg,
+                                            tuple(rest[5:]))
+            # the four scalars as bytes in one buffer, the flag last so
+            # that each number lies at a multiple of its size
+            fields = (info.gain, info.cost_cur, info.cost_cand,
+                      info.accepted)
+            packed = torch.cat([t.reshape(1).view(torch.uint8)
+                                for t in fields])
+            return proxy, snap, fields, packed
+
+        proxy, self.snap, fields, self.info = self._record(
+            _step_inputs(state, snap, avg, degs), body)
         self.bel = (proxy.cam_bel, proxy.lmk_bel)
         self.layout = [(t.dtype, t.element_size()) for t in fields]
-        self.graph = cuda_graph
 
     def replay(self, state: GBPState, snap, avg, degs):
         """``_accel_math(state, snap, avg, ...)`` as one replay; the same
         results to the bit."""
-        for buf, t in zip(self.ins, _step_inputs(state, snap, avg, degs)):
-            buf.copy_(t)
-        cur = torch.cuda.current_stream(state.pk.device)
-        self.stream.wait_stream(cur)
-        with torch.cuda.stream(self.stream):
-            self.graph.replay()
-        cur.wait_stream(self.stream)
-        for fn, n in zip(_COUNTED, self.launches):
-            fn.launches += n
+        self._replay(_step_inputs(state, snap, avg, degs))
         state.cam_bel, state.lmk_bel = self.bel
         info, at, fields = self.info.clone(), 0, []
         for dtype, n in self.layout:
@@ -951,16 +1017,11 @@ class _AccelGraph:
 def _accel_step(state: GBPState, snap, avg, graph: GBPGraph,
                 cfg: GBPConfig, degs, group=None, lmk_sharded: bool = False):
     """``_accel_math`` (its docstring says what one step does), eagerly or
-    as a replay of its CUDA graph (``_AccelGraph``). On a card, with the
-    kernels and without ``group``, a state's first step runs eagerly (the
-    warm-up: every kernel loaded), the second is captured and replayed,
-    and each later one is a replay; a step whose ``_accel_key`` differs
-    from the captured one's runs eagerly and drops the graph, and the next
-    recaptures. Every other step runs eagerly. Spans: ``gbp.accel_eager``
-    around an eager step, ``gbp.accel_capture`` around a capture. Returns
-    (state, next snap, AccelStep), to the bit the same either way."""
-    if (group is None and cfg.kernels != "reference"
-            and state.pk.device.type == "cuda"):
+    as a replay of its CUDA graph (``_AccelGraph``), by the rule of the
+    captured steps (above). Spans: ``gbp.accel_eager`` around an eager
+    step, ``gbp.accel_capture`` around a capture. Returns (state, next
+    snap, AccelStep), to the bit the same either way."""
+    if _capturable(state, cfg, group):
         key = _accel_key(state, snap, avg, graph, cfg, degs)
         held = state.accel_graph
         if held is not None and held.matches(key):
@@ -1010,6 +1071,132 @@ def _coarse_step(state: GBPState, graph: GBPGraph, cfg: GBPConfig, degs,
 
 
 # ---------------------------------------------------------------------------
+# runs of sweeps
+# ---------------------------------------------------------------------------
+
+def _sweep_run(s: GBPState, graph: GBPGraph, cfg: GBPConfig, n: int,
+               collect: bool, row, tabled: bool, anneal_from=None,
+               group=None, lmk_sharded: bool = False):
+    """``n`` sweeps (annealed iterations from index ``anneal_from``); after
+    sweep j, ``row(s, tables, j)`` (if given) writes its telemetry. With
+    ``collect``, also the sum of the post-sweep sanitised means. With
+    ``collect`` or ``tabled`` the post-sweep tables are built; they serve
+    ``row``, the means and the next sweep of this run, which would build
+    the same tables from the same beliefs. Returns (state, sums or
+    None)."""
+    sums = None
+    if collect:
+        sums = (torch.zeros_like(s.cam_bel[:CAM_DOF]),
+                torch.zeros_like(s.lmk_bel[:LMK_DOF]))
+    tables = None
+    for j in range(n):
+        if anneal_from is not None:
+            s = iteration(s, graph, cfg, anneal_from + j, group=group,
+                          lmk_sharded=lmk_sharded, tables=tables)
+        else:
+            s = gbp_sweep(s, graph, cfg, group=group,
+                          lmk_sharded=lmk_sharded, tables=tables)
+        tables = _tables(s, cfg) if collect or tabled else None
+        if row is not None:
+            row(s, tables, j)
+        if collect:
+            mc, ml = _table_means(s, tables)
+            sums = (sums[0] + mc, sums[1] + ml)
+    return s, sums
+
+
+def _sweep_inputs(state: GBPState) -> tuple:
+    """What a run of sweeps reads that is reallocated between runs, in
+    ``_SweepGraph``'s order: the beliefs and the priors (the annealing
+    replaces them)."""
+    return state.cam_bel, state.lmk_bel, state.cam_prior, state.lmk_prior
+
+
+def _sweeps_key(state: GBPState, graph: GBPGraph, cfg: GBPConfig, n: int,
+                collect: bool, diag: bool):
+    """(baked, sig): the tensors a captured run of sweeps reads or writes
+    in place (the edge state, the active flags, the graph's edge tensors
+    and segments), and what else it was captured for (its inputs' shapes,
+    dtypes and devices, the baked tensors' shapes, the config, the
+    intrinsics, ``n``, ``collect`` and the telemetry)."""
+    baked = (state.pk, state.damping_count, state.robust, state.active,
+             graph.cam_idx, graph.lmk_idx, graph.meas, graph.meas_var,
+             graph.intr, graph.cam_seg, graph.lmk_seg)
+    sig = (tuple((t.shape, t.dtype, t.device) for t in _sweep_inputs(state)),
+           tuple(None if t is None else t.shape for t in baked[:9]), cfg,
+           tuple(float(x) for x in graph.k.ravel()), n, collect, diag)
+    return baked, sig
+
+
+class _SweepGraph(_Captured):
+    """An anneal-free run of ``n`` sweeps (``_sweep_run``) captured for one
+    state, held in ``state.sweep_graphs`` under (n, collect). It reads and
+    writes ``_sweeps_key``'s ``baked`` in place and copies
+    ``_sweep_inputs`` in. With telemetry its own H6 launch
+    (``DiagLaunch`` on the capture stream, with its own scratch and
+    ticket) writes sweep j's sums into row j of a block of its own, which
+    each replay copies into the solve's rows. The graph writes its closing
+    beliefs into its input buffers, and a replay hands all four buffers
+    to the state, so that the state holds no second copy of its beliefs
+    and priors (the next replay from them copies nothing in; a caller that
+    keeps ``state.cam_bel`` or ``state.cam_prior`` past the state's next
+    run of sweeps clones it). The means' sums go to the caller, which
+    reads them before the state's next replay (``run_gbp`` averages them
+    at once)."""
+
+    def capture(self, state: GBPState, graph: GBPGraph, cfg: GBPConfig,
+                n: int, collect: bool, diag: bool) -> None:
+        """Record ``_sweep_run`` for replays from these inputs' shapes."""
+        stream = self._claim(state)
+        self.rows = self.launch = None
+        if diag:
+            self.rows = torch.empty((n, len(diag_kernel.SUMS)),
+                                    dtype=torch.float64,
+                                    device=state.pk.device)
+            self.launch = diag_kernel.DiagLaunch(
+                state, graph, cfg.num_undamped_iters, self.rows,
+                stream=stream.cuda_stream)
+
+        def body(cam_bel, lmk_bel, cam_prior, lmk_prior):
+            proxy = dataclasses.replace(state, cam_bel=cam_bel,
+                                        lmk_bel=lmk_bel, cam_prior=cam_prior,
+                                        lmk_prior=lmk_prior)
+            proxy, sums = _sweep_run(proxy, graph, cfg, n, collect,
+                                     self.launch, diag)
+            cam_bel.copy_(proxy.cam_bel)
+            lmk_bel.copy_(proxy.lmk_bel)
+            return sums
+
+        self.sums = self._record(_sweep_inputs(state), body)
+
+    def replay(self, state: GBPState, rows, done: int):
+        """The run as one replay, its telemetry into ``rows[done:]``; the
+        same results to the bit."""
+        self._replay(_sweep_inputs(state))
+        if self.rows is not None:
+            rows[done:done + self.rows.shape[0]].copy_(self.rows)
+        state.cam_bel, state.lmk_bel, state.cam_prior, state.lmk_prior = (
+            self.ins)
+        return state, self.sums
+
+
+def _sweep_graph(state: GBPState, graph: GBPGraph, cfg: GBPConfig, n: int,
+                 collect: bool, diag: bool):
+    """The state's ``_SweepGraph`` for this run if it replays (captured,
+    or to be captured now), else None: the run's first sight on the state,
+    or a key that differs from the held graph's (which is dropped), runs
+    eagerly, and the next such run captures."""
+    key = _sweeps_key(state, graph, cfg, n, collect, diag)
+    if state.sweep_graphs is None:
+        state.sweep_graphs = {}
+    held = state.sweep_graphs.get((n, collect))
+    if held is not None and held.matches(key):
+        return held
+    state.sweep_graphs[(n, collect)] = _SweepGraph(key)
+    return None
+
+
+# ---------------------------------------------------------------------------
 # full solves
 # ---------------------------------------------------------------------------
 
@@ -1055,42 +1242,42 @@ def run_gbp(state: GBPState, graph: GBPGraph, cfg: GBPConfig, n_iters: int,
                                         rows)
     cam_means = []
     done = 0
+    replayable = _capturable(state, cfg, group) and not verbose_means
+
+    def row(s, tables, j):
+        """Sweep j of the current run: its five sums into its row."""
+        i = done + j
+        if launch is None:
+            _diag_sums(s, graph, cfg, out=rows[i], group=group)
+        else:
+            launch(s, tables, i)
+            if group is not None:
+                rows[i] = comm.all_sum(group, [rows[i]])[0]
+        if verbose_means:
+            cam_means.append(_variable_means(s)[0])
 
     @trace.spanned("gbp.sweeps")
     def sweeps(s, n, collect=False, anneal_from=None):
-        """``n`` sweeps (annealed iterations from index ``anneal_from``);
-        with ``collect``, also the sum of the post-sweep sanitised means.
-        The post-sweep tables serve the diagnostics, the means and the next
-        sweep of this call, which would build the same tables from the same
-        beliefs."""
+        """``_sweep_run``: eagerly (span ``gbp.sweeps_eager``), or, when
+        anneal-free and ``replayable``, by the rule of the captured steps
+        as a replay of its ``_SweepGraph`` (captured inside span
+        ``gbp.sweeps_capture``)."""
         nonlocal done
-        sums = None
-        if collect:
-            sums = (torch.zeros_like(s.cam_bel[:CAM_DOF]),
-                    torch.zeros_like(s.lmk_bel[:LMK_DOF]))
-        tables = None
-        for j in range(n):
-            if anneal_from is not None:
-                s = iteration(s, graph, cfg, anneal_from + j, group=group,
-                              lmk_sharded=lmk_sharded, tables=tables)
-            else:
-                s = gbp_sweep(s, graph, cfg, group=group,
-                              lmk_sharded=lmk_sharded, tables=tables)
-            tables = (_tables(s, cfg) if collect or launch is not None
-                      else None)
-            if with_diagnostics:
-                if launch is None:
-                    _diag_sums(s, graph, cfg, out=rows[done], group=group)
-                else:
-                    launch(s, tables, done)
-                    if group is not None:
-                        rows[done] = comm.all_sum(group, [rows[done]])[0]
-                if verbose_means:
-                    cam_means.append(_variable_means(s)[0])
-            if collect:
-                mc, ml = _table_means(s, tables)
-                sums = (sums[0] + mc, sums[1] + ml)
-            done += 1
+        held = None
+        if replayable and anneal_from is None and n:
+            held = _sweep_graph(s, graph, cfg, n, collect, with_diagnostics)
+        if held is None:
+            with trace.span("gbp.sweeps_eager"):
+                s, sums = _sweep_run(s, graph, cfg, n, collect,
+                                     row if with_diagnostics else None,
+                                     launch is not None, anneal_from, group,
+                                     lmk_sharded)
+        else:
+            if held.graph is None:
+                with trace.span("gbp.sweeps_capture"):
+                    held.capture(s, graph, cfg, n, collect, with_diagnostics)
+            s, sums = held.replay(s, rows, done)
+        done += n
         return s, sums
 
     warm = min(n_iters, max(0, 2 * cfg.steps - iter_offset))

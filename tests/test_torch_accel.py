@@ -283,10 +283,11 @@ def test_solve_ba_default_config_matches_jax(synthetic):
     assert GBPConfig().accel_every == 50         # the accelerator is on
 
 
-def _accel_calls(rank, kernels):
+def _accel_calls(rank, kernels, verbose=False):
     """The span calls of a 40-sweep run_gbp of the noisy problem on
-    ``rank``'s CPU, edge-sharded over its group (None: one device), and
-    whether the state holds a captured step."""
+    ``rank``'s CPU, edge-sharded over its group (None: one device; with
+    ``verbose``, ``verbose_means``), and whether the state holds no
+    captured step, accelerator or sweeps."""
     from gbp_poplar_tpu_torch import parallel
     from gbp_poplar_tpu_torch.utils import trace
 
@@ -296,12 +297,14 @@ def _accel_calls(rank, kernels):
     s = fg.init_state(tp, cfg, "cpu")
     with trace.collect() as totals:
         if rank is None:
-            s, _ = gbp.solve(s, g, cfg, 40)
+            s = gbp.initialise(s, g, cfg)
+            s, _ = gbp.run_gbp(s, g, cfg, 40, verbose_means=verbose)
         else:
             solver = parallel.make_sharded_solver(rank.group, cfg)
             g, s = solver.prepare(g, s)
             s, _ = solver.solve(s, g, 40)
-    return {k: n for k, (_, n) in totals.items()}, s.accel_graph is None
+    return ({k: n for k, (_, n) in totals.items()},
+            s.accel_graph is None and s.sweep_graphs is None)
 
 
 @pytest.mark.parametrize("case", ["auto", "reference", "group"])
@@ -335,3 +338,203 @@ def test_clone_carries_no_captured_step():
     assert dataclasses.replace(s).accel_graph is None
     assert set(fg.state_to_numpy(s)) == set(fg.STATE_FIELDS)
     assert s.accel_graph is held
+
+
+@pytest.mark.parametrize("case", ["auto", "reference", "group", "verbose"])
+def test_sweeps_run_eagerly_off_the_card(case):
+    """Off the card every run of sweeps runs eagerly: each ``gbp.sweeps``
+    (the annealed run, three live chunks, the leftover) holds one
+    ``gbp.sweeps_eager``, none a capture, and no state holds a captured
+    run; so with ``kernels="reference"``, with a process group (the
+    sharded solvers, here one gloo rank) and with ``verbose_means``."""
+    from gbp_poplar_tpu_torch import parallel
+
+    if case == "group":
+        ((calls, none),) = parallel.run(_accel_calls, 1, args=("auto",),
+                                        device_type="cpu")
+    else:
+        calls, none = _accel_calls(
+            None, "reference" if case == "reference" else "auto",
+            verbose=case == "verbose")
+    assert calls["gbp.sweeps"] == calls["gbp.sweeps_eager"] == 5
+    assert "gbp.sweeps_capture" not in calls and none
+
+
+def test_clone_carries_no_captured_sweeps():
+    """Captured runs of sweeps are their state's alone: ``clone()``,
+    ``dataclasses.replace`` and ``state_to_numpy`` leave them behind, and
+    no state shares another's table of them."""
+    import dataclasses
+
+    tp, _ = _noisy()
+    cfg = GBPConfig(edge_pad_multiple=PAD, **ACCEL)
+    s = fg.init_state(tp, cfg, "cpu")
+    assert s.sweep_graphs is None
+    s.sweep_graphs = held = {(8, True): object()}
+    assert s.clone().sweep_graphs is None
+    assert dataclasses.replace(s).sweep_graphs is None
+    assert set(fg.state_to_numpy(s)) == set(fg.STATE_FIELDS)
+    assert s.sweep_graphs is held and fg.GBPState.sweep_graphs is None
+
+
+class _StandIn(gbp._SweepGraph):
+    """A captured run of sweeps with its capture and replay stood in for
+    (the CPU has no CUDA graphs): the capture records the run, a replay
+    runs it eagerly with its telemetry at the solve's row offset."""
+
+    def capture(self, state, graph, cfg, n, collect, diag):
+        self.graph = (graph, cfg, n, collect, diag)
+
+    def replay(self, state, rows, done):
+        graph, cfg, n, collect, diag = self.graph
+
+        def row(s, tables, j):
+            gbp._diag_sums(s, graph, cfg, out=rows[done + j])
+
+        return gbp._sweep_run(state, graph, cfg, n, collect,
+                              row if diag else None, False)
+
+
+def test_sweep_capture_rule(monkeypatch):
+    """The rule that decides a run of sweeps' path, on the CPU with the
+    capture and replay stood in for (``_StandIn``) and the state taken as
+    capturable: an anneal-free run runs eagerly the first time its state
+    sees its (n, collect), is captured the second time and replayed after;
+    a replaced tensor that the graph reads in place makes the next run
+    eager (the graph dropped) and the one after recapture; annealed and
+    empty runs and ``verbose_means`` stay eager. The telemetry lands in
+    each solve's own rows: state and rows equal an all-eager sequence's."""
+    from gbp_poplar_tpu_torch.utils import trace
+
+    tp, _ = _noisy()
+    cfg = GBPConfig(edge_pad_multiple=PAD, accel_every=0)
+    g = fg.build_graph(tp, cfg, "cpu")
+    # (sweeps, iter_offset, verbose_means) of each run_gbp call; the path
+    # of its last run of sweeps (the first call's first run is annealed)
+    plan = [(18, 0, False, "eager"), (8, 18, False, "capture"),
+            (8, 26, False, "replay"), (8, 34, False, "replace"),
+            (8, 42, False, "capture"), (8, 50, True, "eager"),
+            (8, 58, False, "replay")]
+
+    def solve(capturable):
+        monkeypatch.setattr(gbp, "_capturable",
+                            lambda state, cfg, group: capturable)
+        s = gbp.initialise(fg.init_state(tp, cfg, "cpu"), g, cfg)
+        out = []
+        for n, offset, verbose, path in plan:
+            if path == "replace":
+                s.robust = s.robust.clone()
+            with trace.collect() as totals:
+                s, d = gbp.run_gbp(s, g, cfg, n, iter_offset=offset,
+                                   verbose_means=verbose)
+            out.append(({k: c for k, (_, c) in totals.items()},
+                        [t.clone() for t in d[:4]]))
+        return s, out
+
+    monkeypatch.setattr(gbp, "_SweepGraph", _StandIn)
+    s, got = solve(True)
+    s0, want = solve(False)
+    for (calls, rows), (calls0, rows0), (_, offset, _, path) in zip(
+            got, want, plan):
+        # every call runs two runs of sweeps: annealed or empty, then 8
+        assert calls["gbp.sweeps"] == calls0["gbp.sweeps"] == 2
+        assert calls0["gbp.sweeps_eager"] == 2
+        eager = {"eager": 2, "replace": 2}.get(path, 1)
+        assert calls["gbp.sweeps_eager"] == eager, offset
+        assert calls.get("gbp.sweeps_capture", 0) == (path == "capture")
+        for x, y in zip(rows, rows0, strict=True):
+            assert torch.equal(x, y), offset
+    for f in fg.STATE_FIELDS:
+        assert torch.equal(getattr(s, f), getattr(s0, f)), f
+    (held,) = s.sweep_graphs.values()
+    assert isinstance(held, _StandIn) and held.graph[2:4] == (8, False)
+    assert s0.sweep_graphs is None
+
+
+def _outputs(out) -> list:
+    """The tensors a recorded step returns, in order (a state: its
+    beliefs)."""
+    if isinstance(out, torch.Tensor):
+        return [out]
+    if isinstance(out, (tuple, list)):
+        return [t for o in out for t in _outputs(o)]
+    if isinstance(out, fg.GBPState):
+        return [out.cam_bel, out.lmk_bel]
+    return []
+
+
+class _Rerun:
+    """``gbp._Captured``'s capture and replay on the CPU, with a graph's
+    memory rules: the body's inputs are the step's own buffers, what the
+    capture returns keeps its storage and each replay writes its results
+    there, and the capture changes nothing (the tensors it reads in place
+    are restored)."""
+
+    class pool:
+        class stream:
+            cuda_stream = 0
+
+    def _claim(self, state):
+        return self.pool.stream
+
+    def _record(self, inputs, body):
+        self.ins = [t.clone() for t in inputs]
+        self.body, self.graph = body, "recorded"
+        baked = [r() for r in self.refs if r is not None]
+        baked = [t for t in baked if isinstance(t, torch.Tensor)]
+        saved = [t.clone() for t in baked]
+        out = body(*[t.clone() for t in self.ins])
+        for t, v in zip(baked, saved):
+            t.copy_(v)
+        self.outs = _outputs(out)
+        return out
+
+    def _replay(self, inputs):
+        for buf, t in zip(self.ins, inputs):
+            if buf is not t:
+                buf.copy_(t)
+        for o, t in zip(self.outs, _outputs(self.body(*self.ins)),
+                        strict=True):
+            o.copy_(t)
+
+
+def test_replayed_steps_buffers_equal_eager(monkeypatch):
+    """The captured steps' buffers on the CPU (``_Rerun``): three run_gbp
+    calls as the ba driver's spans, with an in-place write to the priors
+    between two, replay the accelerator step and the (8, collect) runs
+    of sweeps from buffers the state is handed, and end where the
+    all-eager solve does, state and every accel_log entry to the bit; the
+    state reads the run's prior buffers."""
+    from gbp_poplar_tpu_torch.ops import cost_kernel
+
+    tp, _ = _noisy()
+    cfg = GBPConfig(edge_pad_multiple=PAD, **ACCEL)
+    g = fg.build_graph(tp, cfg, "cpu")
+
+    def solve(capturable):
+        monkeypatch.setattr(gbp, "_capturable",
+                            lambda state, cfg, group: capturable)
+        s = gbp.initialise(fg.init_state(tp, cfg, "cpu"), g, cfg)
+        log = []
+        for offset in range(0, 120, 40):
+            s, _ = gbp.run_gbp(s, g, cfg, 40, iter_offset=offset,
+                               with_diagnostics=False, accel_log=log)
+            s.lmk_prior[:, 0] *= 1.5
+        return s, log
+
+    for name in ("_claim", "_record", "_replay"):
+        monkeypatch.setattr(gbp._Captured, name, getattr(_Rerun, name))
+    monkeypatch.setattr(gbp._Captured, "pool", _Rerun.pool, raising=False)
+    monkeypatch.setattr(cost_kernel, "scratch", lambda *args: None)
+    s, log = solve(True)
+    s0, log0 = solve(False)
+    for f in fg.STATE_FIELDS:
+        assert torch.equal(getattr(s, f), getattr(s0, f)), f
+    assert len(log) == len(log0) == 13
+    for (n, info), (n0, info0) in zip(log, log0):
+        assert n == n0
+        for x, y in zip(info[:4], info0[:4]):
+            assert torch.equal(x, y), n
+    held = s.sweep_graphs[(8, True)]
+    assert held.graph == "recorded" and s.accel_graph.graph == "recorded"
+    assert s.cam_prior is held.ins[2] and s.lmk_prior is held.ins[3]

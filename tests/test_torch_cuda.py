@@ -910,7 +910,7 @@ def test_accel_graph_lives_with_its_state_on_card(cuda_device, monkeypatch):
     reserved = []
     for _ in range(4):
         s, _, _ = run(fresh(), 50)
-        assert gbp._POOLS[cuda_device][2]() is s.accel_graph
+        assert gbp._POOLS[cuda_device][2]() is s.accel_graph.pool
         del s
         torch.cuda.synchronize(cuda_device)
         reserved.append(torch.cuda.memory_reserved(cuda_device))
@@ -967,3 +967,122 @@ def test_accel_steps_stay_eager_on_card(cuda_device, case):
         none = s.accel_graph is None
     assert calls["gbp.accel_step"] == calls["gbp.accel_eager"] == 5
     assert "gbp.accel_capture" not in calls and none
+
+
+# ---------------------------------------------------------------------------
+# the runs of sweeps as CUDA graphs (core/gbp.py, _SweepGraph)
+# ---------------------------------------------------------------------------
+
+# _accel_run's runs of sweeps: (all, eager, captured). slam: 4 segments of
+# 15 runs; each segment's annealed run is eager, the three anneal-free
+# shapes ((50, collect), 50, 40) are first seen in segment 1, (50,
+# collect) is captured there and the other two in segment 2. ladybug:
+# three run_gbp calls, 19 runs: the annealed one, (8, collect) 13 times
+# (first seen, captured, replayed), the leftover 6 and four empty runs.
+SWEEP_RUNS = {"slam": (60, 7, 3), "ladybug": (19, 7, 1)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["slam", "ladybug"])
+def test_replayed_sweeps_equal_eager_on_card(cuda_device, monkeypatch,
+                                             case):
+    """run_gbp with its runs of sweeps and accelerator steps replayed from
+    their CUDA graphs against the same solve with every step run eagerly
+    (``_capturable`` false): the state (beliefs, ``pk`` and every other
+    field), every telemetry row and every accel_log entry to the bit, and
+    each kernel wrapper the same launch count. The spans count the eager,
+    captured and replayed runs."""
+    def run(capturable):
+        for fn in gbp._COUNTED:
+            monkeypatch.setattr(fn, "launches", 0)
+        if not capturable:
+            monkeypatch.setattr(gbp, "_capturable", lambda *args: False)
+        out = _accel_run(case, cuda_device)
+        torch.cuda.synchronize(cuda_device)
+        return out, [fn.launches for fn in gbp._COUNTED]
+
+    (s, rows, log, calls), got = run(True)
+    (s0, rows0, log0, calls0), want = run(False)
+    for (k, x), y in zip(fg.state_to_numpy(s).items(),
+                         fg.state_to_numpy(s0).values()):
+        assert np.array_equal(x, y, equal_nan=True), k
+    for x, y in zip(rows, rows0, strict=True):
+        assert np.array_equal(x, y, equal_nan=True)
+    assert len(log) == len(log0) > 0
+    for (n, info), (n0, info0) in zip(log, log0):
+        assert n == n0
+        for x, y in zip(_step_numbers(info), _step_numbers(info0),
+                        strict=True):
+            assert np.array_equal(x.cpu().numpy(), y.cpu().numpy(),
+                                  equal_nan=True), n
+    assert got == want
+    n_runs, eager, captured = SWEEP_RUNS[case]
+    assert calls["gbp.sweeps"] == calls0["gbp.sweeps"] == n_runs
+    assert calls["gbp.sweeps_eager"] == eager
+    assert calls["gbp.sweeps_capture"] == captured
+    assert calls0["gbp.sweeps_eager"] == n_runs
+    assert "gbp.sweeps_capture" not in calls0
+    assert calls0["gbp.accel_eager"] == calls0["gbp.accel_step"]
+
+
+@pytest.mark.cuda
+def test_sweep_graphs_live_with_their_state_on_card(cuda_device,
+                                                    monkeypatch):
+    """A state's captured runs of sweeps are its own: a fresh state
+    captures its own, ``clone()`` carries none, they share the state's
+    pool with its accelerator step (another live state's are in another
+    pool), and they are freed with the state (no cycle holds them). Their
+    H6 ticket is 0 after the replays. When a tensor the graphs read in
+    place is replaced, the next run of that shape runs eagerly, the one
+    after recaptures, and the solve equals an eager one to the bit."""
+    import weakref
+
+    from gbp_poplar_tpu_torch.utils import trace
+
+    prob = balio.synthetic_problem_large(n_keyframes=20, n_points=1000,
+                                         obs_per_lmk=7, seed=2)
+    cfg = GBPConfig(accel_every=8, accel_start=10)
+    g = fg.build_graph(prob, cfg, cuda_device)
+
+    def run(s, n, offset=0):
+        with trace.collect() as totals:
+            s, d = gbp.run_gbp(s, g, cfg, n, iter_offset=offset)
+        return s, d, {k: c for k, (_, c) in totals.items()}
+
+    def fresh():
+        return gbp.initialise(fg.init_state(prob, cfg, cuda_device), g, cfg)
+
+    # 7 runs: the annealed one, five (8, collect) chunks and the empty
+    # leftover; the annealed, the first chunk and the empty run eager, the
+    # second chunk captured, three replays
+    a, _, calls_a = run(fresh(), 50)
+    b, _, calls_b = run(fresh(), 50)
+    for calls in (calls_a, calls_b):
+        assert calls["gbp.sweeps"] == 7
+        assert calls["gbp.sweeps_eager"] == 3
+        assert calls["gbp.sweeps_capture"] == 1
+    (held,) = a.sweep_graphs.values()
+    assert isinstance(held, gbp._SweepGraph) and held.graph is not None
+    assert held.pool is a.accel_graph.pool
+    (other,) = b.sweep_graphs.values()
+    assert other is not held and other.pool is b.accel_graph.pool
+    assert other.pool is not held.pool
+    assert a.clone().sweep_graphs is None
+    # the state reads the graph's own buffers: no second copy of its priors
+    assert a.cam_prior is held.ins[2] and a.lmk_prior is held.ins[3]
+    assert int(held.launch.scratch.ticket.item()) == 0
+    refs = weakref.ref(held), weakref.ref(held.graph), weakref.ref(held.pool)
+    del a, held
+    assert all(r() is None for r in refs)
+
+    b.active = b.active.clone()
+    c = b.clone()
+    b, d, calls = run(b, 40, 50)
+    # the empty annealed run, the first chunk (its graph dropped) and the
+    # empty leftover eager, the second chunk recaptured, three replays
+    assert calls["gbp.sweeps"] == 7
+    assert calls["gbp.sweeps_eager"] == 3
+    assert calls["gbp.sweeps_capture"] == 1
+    monkeypatch.setattr(gbp, "_capturable", lambda *args: False)
+    c, d0, _ = run(c, 40, 50)
+    assert_same_run((b, d), (c, d0))
